@@ -1,0 +1,5 @@
+"""Run configuration and the evaluation CLI."""
+
+from .config import PPOConfig, RunConfig, load_run_config
+
+__all__ = ("PPOConfig", "RunConfig", "load_run_config")

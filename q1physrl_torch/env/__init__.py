@@ -1,0 +1,13 @@
+"""Batched Quake-movement environment (functional core)."""
+
+from .config import (INITIAL_STATE, INITIAL_YAW_ZERO, MAX_YAW_SPEED, Config,
+                     Key, Obs, get_obs_scale)
+from .core import (EnvState, StepResult, compute_obs, decode_actions, reset,
+                   reset_from_uniforms, step)
+
+__all__ = (
+    "Config", "Key", "Obs", "INITIAL_STATE", "INITIAL_YAW_ZERO",
+    "MAX_YAW_SPEED", "get_obs_scale",
+    "EnvState", "StepResult", "compute_obs", "decode_actions", "reset",
+    "reset_from_uniforms", "step",
+)

@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
 2. build   — compiles every kernel of the scoring path from the checkout.
 3. kernel  — holds the ``rollout_actions`` CUDA kernel against its plain
              PyTorch version on the card, for the run4 config and five probe
-             configs, and times both at the scoring shape (N=512, T=1) and
-             a throughput shape (N=65,536, T=128) beside the byte bound.
+             configs (N=4,096, T=64), then compares and times both at the
+             scoring shape (N=512, T=1) and a throughput shape (N=65,536,
+             T=128) beside the byte bound.
 4. scoring — runs the evaluate CLI on the shipped ``tpu_pb`` checkpoint under
              ``configs/run4.yml`` (512 stochastic + 2 deterministic zero-start
              episodes), checks one kernel launch per env step and the scores
@@ -64,7 +65,8 @@ def _emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def _probe_configs(base):
+def probe_configs(base):
+    """The run4 config and the five variants that change the step program."""
     return {
         "run4": base,
         "allow_yaw=False": dataclasses.replace(base, allow_yaw=False),
@@ -75,10 +77,23 @@ def _probe_configs(base):
     }
 
 
-def _inputs(cfg, n, t, seed, device):
-    """A numpy-seeded start state and action stream: a third zero starts,
-    a quarter of the envs within a second of their time limit (so episodes
-    end inside the stream), random keys and yaw."""
+def random_actions(cfg, rng, steps, n):
+    """(T, K, N) int32 keys in {0, 1} and (T, N) float32 yaw actions as numpy
+    arrays: uniform on +-action_range, or step indices for a discrete yaw
+    axis."""
+    ka = rng.integers(0, 2, (steps, cfg.num_keys, n)).astype(np.int32)
+    if cfg.discrete_yaw_steps == -1:
+        ya = rng.uniform(-cfg.action_range, cfg.action_range, (steps, n))
+    else:
+        ya = rng.integers(0, 2 * cfg.discrete_yaw_steps + 1, (steps, n))
+    return ka, ya.astype(np.float32)
+
+
+def rollout_inputs(cfg, n, steps, seed, device, near_end=0.25):
+    """A numpy-seeded start state and action stream for ``rollout_actions``:
+    a third zero starts, a ``near_end`` share of the envs within a second of
+    their time limit (so episodes end inside the stream), random keys and
+    yaw."""
     import torch
 
     from q1physrl_torch.env import core
@@ -87,18 +102,13 @@ def _inputs(cfg, n, t, seed, device):
     u = torch.tensor(rng.random((5, n)), dtype=torch.float32, device=device)
     state = core.reset_from_uniforms(
         dataclasses.replace(cfg, zero_start_prob=0.3), *u)
-    near_end = rng.random(n) < 0.25
-    tr = np.where(near_end, rng.uniform(0.0, 1.0, n),
+    ends = rng.random(n) < near_end
+    tr = np.where(ends, rng.uniform(0.0, 1.0, n),
                   state.time_remaining.cpu().numpy())
     state.time_remaining = torch.tensor(tr, dtype=torch.float32, device=device)
-    ka = torch.tensor(rng.integers(0, 2, (t, cfg.num_keys, n)),
-                      dtype=torch.int32, device=device)
-    if cfg.discrete_yaw_steps == -1:
-        ya = rng.uniform(-cfg.action_range, cfg.action_range, (t, n))
-    else:
-        ya = rng.integers(0, 2 * cfg.discrete_yaw_steps + 1, (t, n))
-    ya = torch.tensor(ya, dtype=torch.float32, device=device)
-    return state, ka, ya
+    ka, ya = random_actions(cfg, rng, steps, n)
+    return (state, torch.tensor(ka, device=device),
+            torch.tensor(ya, device=device))
 
 
 def _float_leaves(state):
@@ -121,8 +131,12 @@ def _compare(name, got, want):
         np.testing.assert_array_equal(np_(getattr(s.player, leaf)),
                                       np_(getattr(s0.player, leaf)),
                                       err_msg=f"{name}: {leaf}")
-    np.testing.assert_array_equal(np_(s.last_keys), np_(s0.last_keys),
-                                  err_msg=f"{name}: last_keys")
+    # The clocks are a subtraction and a copy of it in both versions.
+    for leaf in ("last_keys", "zero_start", "time_remaining",
+                 "last_key_press_time"):
+        np.testing.assert_array_equal(np_(getattr(s, leaf)),
+                                      np_(getattr(s0, leaf)),
+                                      err_msg=f"{name}: {leaf}")
     for leaf in ("vel_x", "vel_y", "vel_z", "z_pos"):
         np.testing.assert_allclose(np_(getattr(s.player, leaf)),
                                    np_(getattr(s0.player, leaf)),
@@ -229,8 +243,8 @@ def main() -> int:
     # 3. kernel vs plain version, then timing
     run = load_run_config(str(RUN_YAML))
     max_err = 0.0
-    for seed, (name, cfg) in enumerate(_probe_configs(run.env).items()):
-        state, ka, ya = _inputs(cfg, 4096, 64, seed, device)
+    for seed, (name, cfg) in enumerate(probe_configs(run.env).items()):
+        state, ka, ya = rollout_inputs(cfg, 4096, 64, seed, device)
         got = rollout_actions(cfg, state, ka, ya)
         want = rollout_actions_plain(cfg, state, ka, ya)
         torch.cuda.synchronize()
@@ -239,14 +253,18 @@ def main() -> int:
         _emit({"phase": "kernel", "config": name, "n": 4096, "t": 64,
                "dones": int(want[2].sum()), "max_abs_err": err})
 
+    # The timed shapes are compared too: the scoring shape is the one the
+    # main path launches, and its error is the one the kernels line reports.
     timings = {}
     for shape, (n, t, reps, plain_reps) in {
             "scoring": (512, 1, 1000, 100),
             "throughput": (65536, 128, 20, 2)}.items():
-        state, ka, ya = _inputs(run.env, n, t, 100, device)
+        state, ka, ya = rollout_inputs(run.env, n, t, 100, device)
         kernel = lambda: rollout_actions(run.env, state, ka, ya)
         plain = lambda: rollout_actions_plain(run.env, state, ka, ya)
-        timings[shape] = {"n": n, "t": t,
+        err = _compare(f"run4 {shape} shape", kernel(), plain())
+        max_err = max(max_err, err)
+        timings[shape] = {"n": n, "t": t, "max_abs_err": err,
                           "ms": _time_ms(kernel, reps),
                           "graph_ms": _graph_ms(kernel, min(reps, 100)),
                           "plain_ms": _time_ms(plain, plain_reps),
@@ -280,7 +298,8 @@ def main() -> int:
         "name": "rollout_actions", "route": "cuda",
         "source": "q1physrl_torch/ops/csrc/env_rollout.cu",
         "replaces": "q1physrl_tpu/ops/env_rollout_pallas.py:177",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches, "max_abs_err": scoring["max_abs_err"],
+        "max_abs_err_all_shapes": max_err,
         "ms": scoring["ms"], "kernel_ms": scoring["ms"],
         "graph_ms": scoring["graph_ms"], "plain_ms": scoring["plain_ms"],
         "bound_ms": scoring["bound_ms"], "bound_by": scoring["bound_by"],

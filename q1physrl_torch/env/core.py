@@ -17,6 +17,7 @@ scoring path runs.  The functions here are that kernel's plain version.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -82,11 +83,17 @@ def compute_obs(cfg: Config, player: phys.PlayerState, yaw, time_remaining):
         _round_vel(player.vel_y.to(dtype)),
         _round_vel(player.vel_z.to(dtype)),
     ]
-    # A non-blocking copy: a blocking one would synchronise the stream on
-    # every step of a rollout.
-    scale = torch.tensor(get_obs_scale(cfg), dtype=dtype).to(
-        yaw.device, non_blocking=True)
+    scale = _obs_scale(tuple(get_obs_scale(cfg)), dtype, yaw.device)
     return torch.stack(cols, dim=-1) / scale
+
+
+@functools.lru_cache(maxsize=None)
+def _obs_scale(scale: tuple, dtype: torch.dtype, device: torch.device):
+    """The observation divisors as a tensor, made once per values, dtype and
+    device, so that a rollout does not copy them to the card every frame.
+    Made outside inference mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(scale, dtype=dtype, device=device)
 
 
 def max_yaw_delta(cfg: Config) -> float:

@@ -1,29 +1,17 @@
 """Shared helpers for the tests that hold the PyTorch port against the JAX
 package: the same numpy inputs go through both, and results are compared
-as numpy arrays."""
-
-import dataclasses
+as numpy arrays.  The probe configs and the seeded action stream are the
+ones ``chip_smoke.py`` holds the CUDA kernel to on the card."""
 
 import numpy as np
 import torch
 
+from chip_smoke import probe_configs, random_actions  # noqa: F401
 from q1physrl_torch import phys as tphys
 from q1physrl_torch.env import core as tcore
 
 PLAYER_FIELDS = ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
                  "jump_released")
-
-
-def probe_configs(base):
-    """The run4 config and the five variants that change the step program."""
-    return {
-        "run4": base,
-        "allow_yaw=False": dataclasses.replace(base, allow_yaw=False),
-        "auto_jump=True": dataclasses.replace(base, auto_jump=True),
-        "hover=True": dataclasses.replace(base, hover=True),
-        "discrete_yaw_steps=3": dataclasses.replace(base, discrete_yaw_steps=3),
-        "speed_reward=True": dataclasses.replace(base, speed_reward=True),
-    }
 
 
 def t(x):
@@ -38,17 +26,6 @@ def env_state_from_jax(st) -> tcore.EnvState:
         yaw=t(st.yaw), time_remaining=t(st.time_remaining),
         zero_start=t(st.zero_start), last_keys=t(st.last_keys),
         last_key_press_time=t(st.last_key_press_time))
-
-
-def random_actions(cfg, rng, steps, n):
-    """(T, K, N) int32 keys in {0, 1} and (T, N) float32 yaw actions: uniform
-    on ±action_range, or step indices for a discrete yaw axis."""
-    ka = rng.integers(0, 2, (steps, cfg.num_keys, n)).astype(np.int32)
-    if cfg.discrete_yaw_steps == -1:
-        ya = rng.uniform(-cfg.action_range, cfg.action_range, (steps, n))
-    else:
-        ya = rng.integers(0, 2 * cfg.discrete_yaw_steps + 1, (steps, n))
-    return ka, ya.astype(np.float32)
 
 
 def assert_env_state_close(got: tcore.EnvState, want, vel_rtol=1e-5,

@@ -6,20 +6,17 @@ kernel has no CPU mode).  Run them on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
-import dataclasses
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
 from q1physrl_torch import analyse
 from q1physrl_torch.algo.config import load_run_config
-from q1physrl_torch.env import core
 from q1physrl_torch.models import Policy, import_policy_params
 from q1physrl_torch.ops import env_rollout
 
-from _torch_common import probe_configs, random_actions
+from chip_smoke import probe_configs, rollout_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -36,16 +33,9 @@ def cuda():
 
 
 def _case(cfg, n, steps, seed, device):
-    rng = np.random.default_rng(seed)
-    u = torch.tensor(rng.random((5, n)), dtype=torch.float32, device=device)
-    state = core.reset_from_uniforms(
-        dataclasses.replace(cfg, zero_start_prob=0.3), *u)
-    # Under 1.2 s left: every episode ends inside 100 frames (1.39 s).
-    state.time_remaining = torch.tensor(rng.uniform(0.0, 1.2, n),
-                                        dtype=torch.float32, device=device)
-    ka, ya = random_actions(cfg, rng, steps, n)
-    return state, torch.tensor(ka, device=device), torch.tensor(ya,
-                                                                device=device)
+    # Every env starts under 1 s from its limit: all episodes end inside
+    # 100 frames (1.39 s).
+    return rollout_inputs(cfg, n, steps, seed, device, near_end=1.0)
 
 
 @pytest.mark.parametrize("n", [1, 1000])

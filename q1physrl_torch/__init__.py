@@ -6,11 +6,14 @@ imports), holding the same modules in PyTorch's idiom:
 - ``phys``            Quake player-movement physics, plain functions on tensors
 - ``env``             config + functional batched environment core
 - ``models``          policy/value towers, action distributions, RLLib
-                      checkpoint import
-- ``ops``             the hand-written CUDA env-rollout kernel, its wrapper
-                      and its plain version
+                      checkpoint import and export
+- ``ops``             the hand-written CUDA env-rollout kernels, their
+                      wrappers and their plain versions
 - ``analyse``         the zero-start scoring instrument
-- ``algo``            run configs and the evaluation CLI
+- ``algo``            run configs, PPO, checkpoints, the training driver
+                      and the evaluation CLI
+- ``utils``           the metrics writer
+- ``bench``           the throughput bench
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,0 +1,481 @@
+"""PPO actor-learner on torch tensors.
+
+One iteration (:func:`train_iter`) is
+
+    rollout (a Python loop over T frames: the policy, then one launch of the
+             auto-reset env kernel, ops.env_rollout.rollout_actions_autoreset)
+    -> GAE(lambda), a reverse loop over T
+    -> advantage standardization over the whole batch
+    -> num_sgd_iter epochs x minibatched Adam steps
+    -> adaptive-KL coefficient update
+
+and is split into :func:`rollout` and :func:`learn`, so that a caller can
+time the halves or feed :func:`learn` a trajectory of its own.
+
+The loss is RLLib 0.8.4's PPOLoss (ppo_tf_policy.py): clipped surrogate,
+adaptive KL penalty against the behaviour distribution, entropy bonus, and
+the max-of-clipped/unclipped value loss with vf_clip_param.  Adam follows
+the reference's optimizer to its rounding: moments as
+``(1 - b1) * g + b1 * mu``, bias correction by division, ``eps`` added
+outside the square root, global-norm clipping as
+``(g / norm) * max_norm`` only when the norm reaches ``max_norm``, and the
+learning-rate schedule read at the update count *before* the step.
+
+Episode metrics (episode_reward_mean/max, episode_len_mean, and the
+north-star zero_start_total_reward_mean) are accumulated on the device in
+:class:`EpisodeStats`.
+
+The policy's parameters and the Adam moments are updated in place;
+:func:`learn` returns a new :class:`TrainState` that holds the same policy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..env import core as env_core
+from ..env.config import Config as EnvConfig
+from ..models.policy import Policy, action_dist
+from ..ops.env_rollout import rollout_actions_autoreset
+from .config import PPOConfig
+
+__all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
+           "Trajectory", "init_train_state", "rollout", "compute_gae",
+           "ppo_loss", "adam_update", "sgd_epochs", "update_kl_coeff",
+           "learn", "train_iter")
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # TF AdamOptimizer defaults
+
+
+@dataclasses.dataclass
+class EpisodeStats:
+    """Running per-env episode accumulators + finished-episode scalars, all
+    on the device."""
+
+    ep_return: torch.Tensor    # (N,) running return of the live episode
+    ep_len: torch.Tensor       # (N,) int32
+    finished: torch.Tensor     # () float32 — episodes finished
+    ret_sum: torch.Tensor      # () float32 — sum of finished returns
+    ret_max: torch.Tensor      # () float32 — max finished return
+    len_sum: torch.Tensor      # () float32
+    zs_finished: torch.Tensor  # () float32 — finished zero-start episodes
+    zs_ret_sum: torch.Tensor   # () float32
+
+    @classmethod
+    def zeros(cls, n: int, device="cpu", ep_return=None, ep_len=None):
+        """Fresh accumulators; ``ep_return``/``ep_len`` carry the live
+        episodes over when given."""
+        z = lambda: torch.zeros((), dtype=torch.float32, device=device)
+        return cls(
+            ep_return=(torch.zeros(n, dtype=torch.float32, device=device)
+                       if ep_return is None else ep_return),
+            ep_len=(torch.zeros(n, dtype=torch.int32, device=device)
+                    if ep_len is None else ep_len),
+            finished=z(), ret_sum=z(),
+            ret_max=torch.full((), -torch.inf, dtype=torch.float32,
+                               device=device),
+            len_sum=z(), zs_finished=z(), zs_ret_sum=z())
+
+    def update(self, reward, done, zero_start) -> "EpisodeStats":
+        ep_return = self.ep_return + reward
+        ep_len = self.ep_len + 1
+        d = done.to(torch.float32)
+        zs = d * zero_start.to(torch.float32)
+        return EpisodeStats(
+            ep_return=torch.where(done, 0.0, ep_return),
+            ep_len=torch.where(done, 0, ep_len),
+            finished=self.finished + d.sum(),
+            ret_sum=self.ret_sum + torch.where(done, ep_return, 0.0).sum(),
+            ret_max=torch.maximum(
+                self.ret_max,
+                torch.where(done, ep_return, -torch.inf).max()),
+            len_sum=self.len_sum + (d * ep_len).sum(),
+            zs_finished=self.zs_finished + zs.sum(),
+            zs_ret_sum=self.zs_ret_sum + (zs * ep_return).sum(),
+        )
+
+
+@dataclasses.dataclass
+class AdamState:
+    """First and second moments by parameter name, and the update count."""
+
+    mu: dict
+    nu: dict
+    count: int = 0
+
+    @classmethod
+    def zeros(cls, policy: Policy) -> "AdamState":
+        named = dict(policy.named_parameters())
+        return cls(mu={k: torch.zeros_like(p) for k, p in named.items()},
+                   nu={k: torch.zeros_like(p) for k, p in named.items()})
+
+
+@dataclasses.dataclass
+class TrainState:
+    policy: Policy
+    opt_state: AdamState
+    env_state: env_core.EnvState
+    stats: EpisodeStats
+    kl_coeff: torch.Tensor     # () float32, adaptive, on the device
+    generator: torch.Generator
+    iteration: int
+    env_steps: float           # a float32 value, as the reference keeps it
+
+
+class Coeffs(NamedTuple):
+    """Runtime overrides of the schedules in :class:`PPOConfig`."""
+
+    entropy_coeff: float
+    lr: float
+    kl_target: float
+
+
+class Batch(NamedTuple):
+    """Flattened (B, ...) training batch."""
+
+    obs: torch.Tensor           # (B, 6)
+    key_actions: torch.Tensor   # (B, K) int32
+    yaw_actions: torch.Tensor   # (B,)
+    logits: torch.Tensor        # (B, L) behaviour logits
+    logp: torch.Tensor          # (B,) behaviour log-prob
+    value: torch.Tensor         # (B,) behaviour value pred
+    advantage: torch.Tensor     # (B,)
+    value_target: torch.Tensor  # (B,)
+
+
+class Trajectory(NamedTuple):
+    """What :func:`rollout` collects, with leading axis T."""
+
+    obs: torch.Tensor             # (T, N, 6)
+    key_actions: torch.Tensor     # (T, K, N) int32
+    yaw_actions: torch.Tensor     # (T, N)
+    logits: torch.Tensor          # (T, N, L)
+    logp: torch.Tensor            # (T, N)
+    value: torch.Tensor           # (T, N)
+    reward: torch.Tensor          # (T, N)
+    done: torch.Tensor            # (T, N) bool
+    reset_uniforms: torch.Tensor  # (T, 5, N): the re-draws, for replay
+
+
+def _interp_schedule(schedule, x) -> float:
+    """Piecewise-linear schedule ((x0, v0), (x1, v1), ...) -> value at x, in
+    float32 as the reference's one-dimensional interpolation computes it
+    (constant beyond the ends)."""
+    xs = np.asarray([p[0] for p in schedule], np.float32)
+    ys = np.asarray([p[1] for p in schedule], np.float32)
+    x = np.float32(x)
+    i = min(max(int(np.searchsorted(xs, x, side="right")), 1), len(xs) - 1)
+    dx = xs[i] - xs[i - 1]
+    if abs(dx) <= np.spacing(np.finfo(np.float32).eps):
+        f = ys[i - 1]
+    else:
+        f = ys[i - 1] + ((x - xs[i - 1]) / dx) * (ys[i] - ys[i - 1])
+    if x < xs[0]:
+        f = ys[0]
+    if x > xs[-1]:
+        f = ys[-1]
+    return float(f)
+
+
+def _learning_rate(ppo: PPOConfig, count: int) -> float:
+    """The learning rate of update ``count`` (counted from 0): the schedule
+    maps update counts to env steps, as each iteration makes
+    num_sgd_iter * num_minibatches updates per batch_size env steps."""
+    if ppo.lr_schedule is None:
+        return float(np.float32(ppo.lr))
+    upd_per_iter = ppo.num_sgd_iter * ppo.num_minibatches
+    env_per_update = ppo.batch_size / upd_per_iter
+    return _interp_schedule(ppo.lr_schedule, count * env_per_update)
+
+
+def init_train_state(seed: int, env_cfg: EnvConfig, ppo: PPOConfig,
+                     device="cuda") -> TrainState:
+    """Policy weights, the first env states, and every later draw of the
+    run (actions, re-draws, minibatch permutations) come from one
+    generator on ``device``, seeded with ``seed``."""
+    device = torch.device(device)
+    generator = torch.Generator(device).manual_seed(seed)
+    policy = Policy(env_cfg, generator, device=device)
+    env_state = env_core.reset(env_cfg, generator, ppo.num_envs,
+                               device=device)
+    return TrainState(
+        policy=policy, opt_state=AdamState.zeros(policy),
+        env_state=env_state,
+        stats=EpisodeStats.zeros(ppo.num_envs, device),
+        kl_coeff=torch.tensor(ppo.kl_coeff, dtype=torch.float32,
+                              device=device),
+        generator=generator, iteration=0, env_steps=0.0)
+
+
+def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+            env_state: env_core.EnvState, stats: EpisodeStats,
+            generator: torch.Generator):
+    """Collect T frames from N envs with the policy in the loop.
+
+    Each frame samples the policy, draws the five reset uniforms from
+    ``generator`` and advances the envs with one T=1 call of
+    ``rollout_actions_autoreset`` (one kernel launch on the card).
+
+    Returns (env_state', stats', trajectory, bootstrap_value).
+    """
+    n = env_state.num_envs
+    device = env_state.yaw.device
+    frames = []
+    with torch.no_grad():
+        for _ in range(ppo.rollout_length):
+            obs = env_core.compute_obs(env_cfg, env_state.player,
+                                       env_state.yaw,
+                                       env_state.time_remaining).to(
+                                           torch.float32)
+            logits, value = policy(obs)
+            dist = action_dist(env_cfg, logits)
+            ka, ya = dist.sample(generator)
+            logp = dist.logp(ka, ya)
+            ru = torch.rand((5, n), generator=generator, dtype=torch.float32,
+                            device=device)
+            zero_start = env_state.zero_start
+            env_state, rewards, dones = rollout_actions_autoreset(
+                env_cfg, env_state, ka[None], ya[None], ru[None])
+            stats = stats.update(rewards[0], dones[0], zero_start)
+            frames.append((obs, ka, ya, logits, logp, value, rewards[0],
+                           dones[0], ru))
+        # Bootstrap value of the state after the last frame (re-drawn envs
+        # bootstrap their fresh episode; done-masking in GAE handles the
+        # seam).
+        final_obs = env_core.compute_obs(
+            env_cfg, env_state.player, env_state.yaw,
+            env_state.time_remaining).to(torch.float32)
+        _, bootstrap_value = policy(final_obs)
+    traj = Trajectory(*(torch.stack(x) for x in zip(*frames)))
+    return env_state, stats, traj, bootstrap_value
+
+
+def compute_gae(ppo: PPOConfig, reward, done, value, bootstrap_value):
+    """GAE(lambda) over (T, N) tensors; matches RLLib's per-episode
+    advantages because the (1 - done) mask zeroes cross-episode flow.
+    Returns (advantages, value_targets)."""
+    not_done = 1.0 - done.to(torch.float32)
+    next_values = torch.cat([value[1:], bootstrap_value[None]], dim=0)
+    deltas = reward + ppo.gamma * next_values * not_done - value
+    advantages = torch.empty_like(deltas)
+    adv = torch.zeros_like(bootstrap_value)
+    for t in reversed(range(deltas.shape[0])):
+        adv = deltas[t] + ppo.gamma * ppo.lam * not_done[t] * adv
+        advantages[t] = adv
+    return advantages, advantages + value
+
+
+def ppo_loss(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+             batch: Batch, kl_coeff, entropy_coeff=None):
+    """RLLib 0.8.4 PPOLoss (ppo_tf_policy.py).  Returns (total, aux) with
+    aux the detached per-batch means."""
+    if entropy_coeff is None:
+        entropy_coeff = ppo.entropy_coeff
+    logits, value = policy(batch.obs)
+    dist = action_dist(env_cfg, logits)
+    behaviour_dist = action_dist(env_cfg, batch.logits)
+
+    curr_logp = dist.logp(batch.key_actions.T, batch.yaw_actions)
+    logp_ratio = torch.exp(curr_logp - batch.logp)
+    action_kl = behaviour_dist.kl(dist)
+    entropy = dist.entropy()
+
+    surrogate = torch.minimum(
+        batch.advantage * logp_ratio,
+        batch.advantage * torch.clamp(logp_ratio, 1.0 - ppo.clip_param,
+                                      1.0 + ppo.clip_param))
+
+    vf_loss1 = torch.square(value - batch.value_target)
+    vf_clipped = batch.value + torch.clamp(value - batch.value,
+                                           -ppo.vf_clip_param,
+                                           ppo.vf_clip_param)
+    vf_loss2 = torch.square(vf_clipped - batch.value_target)
+    vf_loss = torch.maximum(vf_loss1, vf_loss2)
+
+    total = torch.mean(-surrogate + kl_coeff * action_kl
+                       + ppo.vf_loss_coeff * vf_loss
+                       - entropy_coeff * entropy)
+    with torch.no_grad():
+        # Variances divide by N, as the reference's do.
+        aux = {
+            "policy_loss": torch.mean(-surrogate),
+            "vf_loss": torch.mean(vf_loss),
+            "kl": torch.mean(action_kl),
+            "entropy": torch.mean(entropy),
+            "vf_explained_var": 1.0 - torch.var(
+                batch.value_target - value, correction=0)
+            / (torch.var(batch.value_target, correction=0) + 1e-8),
+        }
+    return total, aux
+
+
+def _clip_by_global_norm(grads, max_norm: float):
+    """Scale every gradient by max_norm / (global norm) when that norm
+    reaches max_norm, computed as ``(g / norm) * max_norm`` with no epsilon;
+    on the device, without a host sync."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+
+def adam_update(ppo: PPOConfig, params, grads, state: AdamState,
+                lr: Optional[float] = None) -> AdamState:
+    """One Adam step (with the optional global-norm clip) on ``params`` in
+    place, with multi-tensor (``_foreach``) operations; ``params`` and
+    ``grads`` in the order of ``state.mu``.  ``lr`` overrides the
+    configured rate or schedule."""
+    if lr is None:
+        lr = _learning_rate(ppo, state.count)
+    if ppo.grad_clip is not None:
+        grads = _clip_by_global_norm(grads, ppo.grad_clip)
+    mu, nu = list(state.mu.values()), list(state.nu.values())
+    count = state.count + 1
+    bc1 = float(np.float32(1 - ADAM_B1 ** count))
+    bc2 = float(np.float32(1 - ADAM_B2 ** count))
+    with torch.no_grad():
+        torch._foreach_mul_(mu, ADAM_B1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
+        torch._foreach_mul_(nu, ADAM_B2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - ADAM_B2))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPS)
+        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        torch._foreach_mul_(updates, -lr)
+        torch._foreach_add_(params, updates)
+    state.count = count
+    return state
+
+
+def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+               opt_state: AdamState, kl_coeff, batch: Batch,
+               generator: torch.Generator, entropy_coeff=None, lr=None,
+               perms=None):
+    """num_sgd_iter epochs of minibatched Adam over the flattened batch.
+
+    ``perms``: optional (num_sgd_iter, n_mb * mb_size) permutations of the
+    batch indices; by default each epoch draws one from ``generator`` and
+    keeps its first n_mb * mb_size entries.
+
+    Returns (opt_state, aux): aux holds the last epoch's means of the
+    per-minibatch loss statistics (RLLib's update_kl reads that KL).
+    """
+    n_mb = ppo.num_minibatches
+    mb_size = ppo.batch_size // n_mb
+    params = [dict(policy.named_parameters())[k] for k in opt_state.mu]
+    device = batch.obs.device
+    aux = {}
+    for epoch in range(ppo.num_sgd_iter):
+        if perms is None:
+            perm = torch.randperm(ppo.batch_size, generator=generator,
+                                  device=device)[:n_mb * mb_size]
+        else:
+            perm = torch.as_tensor(perms[epoch], device=device)
+        shuffled = Batch(*(x[perm] for x in batch))
+        stats = []
+        for j in range(n_mb):
+            mb = Batch(*(x[j * mb_size:(j + 1) * mb_size] for x in shuffled))
+            total, mb_aux = ppo_loss(env_cfg, ppo, policy, mb, kl_coeff,
+                                     entropy_coeff)
+            grads = torch.autograd.grad(total, params)
+            opt_state = adam_update(ppo, params, grads, opt_state, lr)
+            stats.append(mb_aux)
+        aux = {k: torch.stack([s[k] for s in stats]).mean() for k in stats[0]}
+    return opt_state, aux
+
+
+def update_kl_coeff(ppo: PPOConfig, kl_coeff, sampled_kl, kl_target=None):
+    """RLLib 0.8.4 KLCoeffMixin.update_kl."""
+    if kl_target is None:
+        kl_target = ppo.kl_target
+    return torch.where(
+        sampled_kl > 2.0 * kl_target, kl_coeff * 1.5,
+        torch.where(sampled_kl < 0.5 * kl_target, kl_coeff * 0.5, kl_coeff))
+
+
+def learn(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
+          traj: Trajectory, bootstrap_value, coeffs: Optional[Coeffs] = None,
+          perms=None):
+    """The learning half of an iteration on a trajectory whose episode
+    statistics are already in ``ts.stats``: GAE, standardization,
+    :func:`sgd_epochs`, the KL coefficient.  Returns (TrainState, metrics)
+    with metrics as 0-dim tensors; ``perms`` as in :func:`sgd_epochs`."""
+    advantages, value_targets = compute_gae(ppo, traj.reward, traj.done,
+                                            traj.value, bootstrap_value)
+    # RLLib standardizes advantages over the whole train batch.
+    advantages = ((advantages - advantages.mean())
+                  / torch.clamp(advantages.std(correction=0), min=1e-4))
+
+    t, n = traj.reward.shape
+    flat = lambda x: x.reshape((t * n,) + tuple(x.shape[2:]))
+    batch = Batch(
+        obs=flat(traj.obs),
+        key_actions=flat(traj.key_actions.transpose(1, 2)),  # (B, K)
+        yaw_actions=flat(traj.yaw_actions),
+        logits=flat(traj.logits),
+        logp=flat(traj.logp),
+        value=flat(traj.value),
+        advantage=flat(advantages),
+        value_target=flat(value_targets),
+    )
+
+    if coeffs is not None:
+        entropy_coeff, lr, kl_target = coeffs
+    else:
+        lr = kl_target = None
+        if ppo.entropy_coeff_schedule is not None:
+            # Read at the env steps before this iteration.
+            entropy_coeff = _interp_schedule(ppo.entropy_coeff_schedule,
+                                             ts.env_steps)
+        else:
+            entropy_coeff = ppo.entropy_coeff
+    opt_state, aux = sgd_epochs(env_cfg, ppo, ts.policy, ts.opt_state,
+                                ts.kl_coeff, batch, ts.generator,
+                                entropy_coeff, lr, perms)
+    kl_coeff = update_kl_coeff(ppo, ts.kl_coeff, aux["kl"], kl_target)
+
+    stats = ts.stats
+    nan = float("nan")
+    has_ep = stats.finished > 0
+    has_zs = stats.zs_finished > 0
+    metrics = {
+        "episode_reward_mean": torch.where(
+            has_ep, stats.ret_sum / torch.clamp(stats.finished, min=1), nan),
+        "episode_reward_max": torch.where(has_ep, stats.ret_max, nan),
+        "episode_len_mean": torch.where(
+            has_ep, stats.len_sum / torch.clamp(stats.finished, min=1), nan),
+        "episodes_total": stats.finished,
+        "zero_start_total_reward_mean": torch.where(
+            has_zs, stats.zs_ret_sum / torch.clamp(stats.zs_finished, min=1),
+            nan),
+        "zero_start_episodes": stats.zs_finished,
+        "kl_coeff": kl_coeff,
+        "mean_reward": traj.reward.mean(),
+        **aux,
+    }
+
+    new_ts = dataclasses.replace(
+        ts, opt_state=opt_state,
+        # Finished-episode accumulators restart each iteration; the live
+        # episodes' running return and length carry over.
+        stats=EpisodeStats.zeros(n, stats.ep_return.device,
+                                 ep_return=stats.ep_return,
+                                 ep_len=stats.ep_len),
+        kl_coeff=kl_coeff, iteration=ts.iteration + 1,
+        env_steps=float(np.float32(ts.env_steps) + np.float32(t * n)))
+    return new_ts, metrics
+
+
+def train_iter(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
+               coeffs: Optional[Coeffs] = None):
+    """One full PPO iteration: :func:`rollout`, then :func:`learn`.
+    Returns (TrainState, metrics)."""
+    env_state, stats, traj, bootstrap_value = rollout(
+        env_cfg, ppo, ts.policy, ts.env_state, ts.stats, ts.generator)
+    ts = dataclasses.replace(ts, env_state=env_state, stats=stats)
+    return learn(env_cfg, ppo, ts, traj, bootstrap_value, coeffs)

@@ -2,12 +2,13 @@
 
 from .config import (INITIAL_STATE, INITIAL_YAW_ZERO, MAX_YAW_SPEED, Config,
                      Key, Obs, get_obs_scale)
-from .core import (EnvState, StepResult, compute_obs, decode_actions, reset,
-                   reset_from_uniforms, step)
+from .core import (EnvState, StepResult, compute_obs, decode_actions,
+                   merge_reset, reset, reset_from_uniforms, step,
+                   step_autoreset)
 
 __all__ = (
     "Config", "Key", "Obs", "INITIAL_STATE", "INITIAL_YAW_ZERO",
     "MAX_YAW_SPEED", "get_obs_scale",
     "EnvState", "StepResult", "compute_obs", "decode_actions", "reset",
-    "reset_from_uniforms", "step",
+    "reset_from_uniforms", "step", "merge_reset", "step_autoreset",
 )

@@ -6,12 +6,15 @@ zero-start flag, and the action decoder's key-latch state — is one explicit
 
     reset(cfg, generator, n, dtype, device)   -> EnvState
     step(cfg, state, keys, yaw_action)        -> (EnvState, StepResult)
+    step_autoreset(cfg, state, keys, yaw_action, reset_uniforms=None,
+                   generator=None)            -> (EnvState, StepResult)
 
 Layout: every per-env quantity is a flat ``(N,)`` tensor; per-key decoder
 state is ``(K, N)`` with the env axis minor, so that one thread per env
-reads neighbouring addresses in the CUDA rollout kernel
-(``ops/csrc/env_rollout.cu``), which fuses :func:`step` and which the
-scoring path runs.  The functions here are that kernel's plain version.
+reads neighbouring addresses in the CUDA rollout kernels
+(``ops/csrc/env_rollout.cu``), which fuse :func:`step` (the scoring path)
+and :func:`step_autoreset` (the training path).  The functions here are
+those kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from .config import (INITIAL_STATE, INITIAL_YAW_ZERO, MAX_YAW_SPEED, Config,
                      Key, get_obs_scale)
 
 __all__ = ("EnvState", "StepResult", "reset", "reset_from_uniforms", "step",
-           "compute_obs", "decode_actions", "max_yaw_delta")
+           "merge_reset", "step_autoreset", "compute_obs", "decode_actions",
+           "max_yaw_delta")
 
 
 @dataclasses.dataclass
@@ -179,9 +183,11 @@ def decode_actions(cfg: Config, state: EnvState, key_actions, yaw_action):
 
 
 def reset_from_uniforms(cfg: Config, u_zs, u_yaw, u_time, u_speed,
-                        u_angle) -> EnvState:
+                        u_angle, float_dtype=None) -> EnvState:
     """Build fresh episode-start state from five uniform-[0,1) draw tensors.
-    yaw, time and z_pos take the draws' dtype; velocity is float32.
+    yaw, time, z_pos and the press clock are computed in the draws' dtype
+    and stored in ``float_dtype`` (default: the draws' dtype); velocity is
+    float32.
 
     This is the single implementation of the reset distribution:
     :func:`reset` feeds it generator draws, and tests feed it the same
@@ -192,7 +198,8 @@ def reset_from_uniforms(cfg: Config, u_zs, u_yaw, u_time, u_speed,
     high=1.0 — so time_remaining / speed / move_angle are drawn from (1, x],
     *not* (0, x].
     """
-    float_dtype = u_yaw.dtype
+    if float_dtype is None:
+        float_dtype = u_yaw.dtype
     shape = u_zs.shape
     device = u_zs.device
 
@@ -299,3 +306,48 @@ def step(cfg: Config, state: EnvState, key_actions, yaw_action,
            if compute_observation else None)
     return new_state, StepResult(obs=obs, reward=reward, done=done,
                                  zero_start=state.zero_start)
+
+
+def merge_reset(done, fresh: EnvState, current: EnvState) -> EnvState:
+    """Select ``fresh`` episode-start state where ``done``, else ``current``.
+    The (N,) ``done`` broadcasts against both (N,) and (K, N) leaves."""
+    merge = lambda f, c: torch.where(done, f, c)
+    fp, cp = fresh.player, current.player
+    return EnvState(
+        player=phys.PlayerState(**{
+            f.name: merge(getattr(fp, f.name), getattr(cp, f.name))
+            for f in dataclasses.fields(phys.PlayerState)}),
+        yaw=merge(fresh.yaw, current.yaw),
+        time_remaining=merge(fresh.time_remaining, current.time_remaining),
+        zero_start=merge(fresh.zero_start, current.zero_start),
+        last_keys=merge(fresh.last_keys, current.last_keys),
+        last_key_press_time=merge(fresh.last_key_press_time,
+                                  current.last_key_press_time),
+    )
+
+
+def step_autoreset(cfg: Config, state: EnvState, key_actions, yaw_action,
+                   compute_observation: bool = True, reset_uniforms=None,
+                   generator: torch.Generator | None = None):
+    """Step, then re-draw every env whose episode finished.
+
+    Episode boundaries stay staggered across the batch, and the returned
+    :class:`StepResult` carries the reward, done and zero_start from *before*
+    the reset, so that episode metrics can be accumulated on the device.
+
+    ``reset_uniforms``: (5, N) uniform-[0,1) draws for the re-draw.  When
+    None, they are drawn from ``generator`` in the state's float dtype, as
+    :func:`reset` draws them.
+    """
+    new_state, out = step(cfg, state, key_actions, yaw_action,
+                          compute_observation=compute_observation)
+    if reset_uniforms is None:
+        if generator is None:
+            raise ValueError("step_autoreset needs reset_uniforms or a "
+                             "generator")
+        reset_uniforms = torch.rand((5, state.num_envs), generator=generator,
+                                    dtype=state.yaw.dtype,
+                                    device=state.yaw.device)
+    fresh = reset_from_uniforms(cfg, *reset_uniforms,
+                                float_dtype=state.yaw.dtype)
+    return merge_reset(out.done, fresh, new_state), out

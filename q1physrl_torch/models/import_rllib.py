@@ -20,7 +20,8 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ("load_rllib_checkpoint", "import_policy_params", "params_from_jax")
+__all__ = ("load_rllib_checkpoint", "import_policy_params", "params_from_jax",
+           "adam_state_from_jax")
 
 _POLICY_LAYERS = ("fc_1", "fc_2", "fc_out")
 _VALUE_LAYERS = ("fc_value_1", "fc_value_2", "value_out")
@@ -63,16 +64,16 @@ def load_rllib_checkpoint(path: str) -> dict:
             "filters": worker.get("filters")}
 
 
-def _state_dict(towers) -> dict:
-    """{"pi"/"vf": [(W (in, out), b), ...]} -> a float32 :class:`Policy`
-    state dict."""
+def _state_dict(towers, dtype=torch.float32) -> dict:
+    """{"pi"/"vf": [(W (in, out), b), ...]} -> a :class:`Policy` state dict
+    of ``dtype``."""
     sd = {}
     for tower, layers in towers.items():
         for i, (w, b) in enumerate(layers):
             sd[f"{tower}.layers.{i}.weight"] = torch.tensor(
-                np.asarray(w).T, dtype=torch.float32)
+                np.asarray(w).T, dtype=dtype)
             sd[f"{tower}.layers.{i}.bias"] = torch.tensor(
-                np.asarray(b), dtype=torch.float32)
+                np.asarray(b), dtype=dtype)
     return sd
 
 
@@ -88,8 +89,20 @@ def import_policy_params(path: str) -> dict:
                         "vf": layers(_VALUE_LAYERS)})
 
 
-def params_from_jax(params) -> dict:
+def params_from_jax(params, dtype=torch.float32) -> dict:
     """The JAX package's params pytree, as numpy arrays
     (``{"policy": [(W, b)] * 3, "value": [(W, b)] * 3}``, W laid out
-    ``(in, out)``) -> a :class:`Policy` state dict."""
-    return _state_dict({"pi": params["policy"], "vf": params["value"]})
+    ``(in, out)``) -> a :class:`Policy` state dict of ``dtype`` (float64
+    keeps float64 params exact).  Gradients and Adam moments of the same
+    layout carry across the same way."""
+    return _state_dict({"pi": params["policy"], "vf": params["value"]},
+                       dtype)
+
+
+def adam_state_from_jax(mu, nu, count, dtype=torch.float32) -> dict:
+    """Adam's first and second moments (params-shaped pytrees of numpy
+    arrays) and update count from the JAX package's optimizer state ->
+    ``{"mu", "nu", "count"}``, the fields of ``algo.ppo.AdamState``, keyed
+    by the :class:`Policy` parameter names."""
+    return {"mu": params_from_jax(mu, dtype), "nu": params_from_jax(nu, dtype),
+            "count": int(count)}

@@ -1,18 +1,23 @@
-"""The CUDA rollout kernel on the card: held against its plain version, its
-argument checks and launch count, and scoring on the card against the CPU.
+"""The CUDA rollout kernels on the card: each held against its plain
+version, their argument checks and launch counts, the kernels' Philox
+against its plain version and curand's, scoring on the card against the
+CPU, and a training iteration on the card.
 
 These tests need an NVIDIA card and nvcc; without them they skip (the
-kernel has no CPU mode).  Run them on the card with
-``python -m pytest -m cuda tests/test_torch_cuda.py``.
+kernels have no CPU mode).  Run them on the card with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from q1physrl_torch import analyse
-from q1physrl_torch.algo.config import load_run_config
+from q1physrl_torch.algo import ppo
+from q1physrl_torch.algo.config import PPOConfig, load_run_config
 from q1physrl_torch.models import Policy, import_policy_params
 from q1physrl_torch.ops import env_rollout
 
@@ -61,12 +66,94 @@ def test_kernel_equals_plain_version(cuda, name, n):
         assert torch.equal(getattr(got_state, f), getattr(want_state, f)), f
 
 
+def _assert_states_equal(got, want):
+    for f in ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
+              "jump_released"):
+        assert torch.equal(getattr(got.player, f),
+                           getattr(want.player, f)), f
+    for f in ("yaw", "time_remaining", "last_keys", "last_key_press_time",
+              "zero_start"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("n", [1, 1000])
+@pytest.mark.parametrize("name", list(probe_configs(RUN4)))
+def test_autoreset_kernel_equals_plain_version(cuda, name, n):
+    """Every env ends inside the 100 frames and re-draws from the streamed
+    uniforms (zero_start_prob 0.3, so both branches of the re-draw run):
+    bitwise equal, as for rollout_actions."""
+    cfg = dataclasses.replace(probe_configs(RUN4)[name], zero_start_prob=0.3)
+    state, ka, ya = _case(cfg, n, 100, 3, cuda)
+    ru = torch.tensor(np.random.default_rng(3).random((100, 5, n)),
+                      dtype=torch.float32, device=cuda)
+    got_state, got_r, got_d = env_rollout.rollout_actions_autoreset(
+        cfg, state, ka, ya, ru)
+    want_state, want_r, want_d = env_rollout.rollout_actions_autoreset_plain(
+        cfg, state, ka, ya, ru)
+    assert bool(want_d.any())
+    assert torch.equal(got_r, want_r)
+    assert torch.equal(got_d, want_d)
+    _assert_states_equal(got_state, want_state)
+
+
+@pytest.mark.parametrize("n", [1, 1000])
+@pytest.mark.parametrize("name", list(probe_configs(RUN4)))
+def test_random_kernel_equals_plain_version(cuda, name, n):
+    """The kernel draws the plain version's Philox bits and runs its
+    float32 operations: bitwise equal reward sums, done counts and
+    states."""
+    cfg = dataclasses.replace(probe_configs(RUN4)[name], zero_start_prob=0.3)
+    state, _, _ = _case(cfg, n, 1, 4, cuda)
+    got_state, got_r, got_d = env_rollout.rollout_random(cfg, state, 100,
+                                                         seed=17)
+    want_state, want_r, want_d = env_rollout.rollout_random_plain(
+        cfg, state, 100, seed=17)
+    assert int(want_d) > 0
+    assert torch.equal(got_r, want_r)
+    assert int(got_d) == int(want_d)
+    _assert_states_equal(got_state, want_state)
+
+
+def test_philox_matches_plain_version_and_curand(cuda):
+    rng = np.random.default_rng(5)
+    counters = torch.tensor(rng.integers(0, 1 << 32, (4, 5000)),
+                            dtype=torch.int64, device=cuda)
+    key = (0x12345678, 0x9ABCDEF0)
+    want = torch.stack(env_rollout.philox4x32_10(*counters, *key))
+    assert torch.equal(env_rollout.philox_on_card(counters, key), want)
+    assert torch.equal(env_rollout.philox_on_card(counters, key,
+                                                  curand=True), want)
+
+
+def test_training_iteration_on_card(cuda):
+    """A small iteration on the card: one launch of the auto-reset kernel
+    per frame, finite metrics, params moved."""
+    cfg = dataclasses.replace(RUN4, num_envs=None)
+    ppo_cfg = PPOConfig(num_envs=256, rollout_length=8, num_sgd_iter=2,
+                        sgd_minibatch_size=256)
+    ts = ppo.init_train_state(0, cfg, ppo_cfg, cuda)
+    before = ts.policy.pi.layers[0].weight.clone()
+    launches = env_rollout.rollout_actions_autoreset.launches
+    ts, metrics = ppo.train_iter(cfg, ppo_cfg, ts)
+    assert env_rollout.rollout_actions_autoreset.launches == launches + 8
+    assert all(np.isfinite(float(metrics[k]))
+               for k in ("kl", "entropy", "vf_loss"))
+    assert not torch.equal(before, ts.policy.pi.layers[0].weight)
+
+
 def test_one_launch_per_call(cuda):
     state, ka, ya = _case(RUN4, 300, 7, 1, cuda)
     before = env_rollout.rollout_actions.launches
     env_rollout.rollout_actions(RUN4, state, ka, ya)
     env_rollout.rollout_actions(RUN4, state, ka[:1], ya[:1])
     assert env_rollout.rollout_actions.launches == before + 2
+    ru = torch.rand((7, 5, 300), device=cuda)
+    before = env_rollout.rollout_actions_autoreset.launches
+    env_rollout.rollout_actions_autoreset(RUN4, state, ka, ya, ru)
+    assert env_rollout.rollout_actions_autoreset.launches == before + 1
+    before = env_rollout.rollout_random.launches
+    env_rollout.rollout_random(RUN4, state, 3)
+    assert env_rollout.rollout_random.launches == before + 1
 
 
 def test_wrapper_rejects_bad_cuda_arguments(cuda):
@@ -75,6 +162,12 @@ def test_wrapper_rejects_bad_cuda_arguments(cuda):
         env_rollout.rollout_actions(RUN4, state, ka, ya.double())
     with pytest.raises(ValueError):  # actions on the CPU, state on the card
         env_rollout.rollout_actions(RUN4, state, ka.cpu(), ya.cpu())
+    with pytest.raises(ValueError):  # reset uniforms on the CPU
+        env_rollout.rollout_actions_autoreset(
+            RUN4, state, ka, ya, torch.rand((2, 5, 64)))
+    with pytest.raises(ValueError):  # float64 state
+        env_rollout.rollout_random(
+            RUN4, dataclasses.replace(state, yaw=state.yaw.double()), 2)
 
 
 def test_deterministic_score_on_card_matches_cpu(cuda):

@@ -31,6 +31,31 @@ Phases, each printing one JSON line:
                moved, a checkpoint written that restores; seconds per
                iteration split into rollout and learning.
 6. bench_env — the port bench's env metric: rollout_random at N=2^20, T=720.
+7. reference — one process's Trainer at ``configs/params_tpu.yml`` (8,192
+               envs x 96 frames, minibatch 8,192, full-width towers) for
+               one iteration with one epoch: the iteration the data-parallel
+               phases are held to; then one full iteration (30 epochs), the
+               time the ranks' full iterations are set beside.
+8. nccl_w1   — one rank of an NCCL process group: each sharded rollout
+               function equals its kernel on the whole batch to the bit, and
+               the Trainer's global-mode iteration equals phase 7's to the
+               bit (metrics and params).
+9. ranks     — two ranks of a gloo process group on this card (NCCL refuses
+               two ranks on one card).  Each sharded function, on the
+               rank's half of the envs, is held against one launch of its
+               kernel on the whole batch (sharded_rollout_random against
+               rollout_random on the shard with seed + rank * 100003, the
+               done count summed exactly) at the probe shape and its main
+               path's shape, then timed alone, beside the all-reduce.  Then
+               the main paths across the two ranks: the evaluate CLI
+               (sharded_rollout_actions), the bench's env metric
+               (sharded_rollout_random), and the Trainer
+               (sharded_rollout_actions_autoreset, one launch per frame per
+               rank) at params_tpu.yml: one epoch in global mode, within
+               rtol 1e-3 / atol 1e-5 of phase 7 with params equal across
+               ranks to the bit; then one full iteration (30 epochs) in
+               each of the global and spmd modes, seconds split into
+               rollout, learning and collectives.
 
 Then the kernels line and, last, the result line.  Any failed build, launch,
 comparison or check raises, and the script exits non-zero without printing
@@ -102,6 +127,24 @@ BENCH_ENV = dict(n=1 << 20, t=720, reps=3)
 # iteration took 187-197 s on an H100 (PERF.md, Findings), over the 150 s at
 # which the smoke run keeps to one; the geometry and widths stay full.
 TRAIN_ITERATIONS = 1
+
+# The data-parallel phases: params_tpu.yml, two gloo ranks on card 0.
+PARAMS_YAML = ROOT / "configs" / "params_tpu.yml"
+WORLD = 2
+RANK_TIMEOUT_S = 900
+# Global (N, T) of the shape each sharded function's main path gives it.
+SHARDED_SHAPES = {"sharded_rollout_actions": (512, 1),
+                  "sharded_rollout_actions_autoreset": (8192, 1),
+                  "sharded_rollout_random": (1 << 20, 720)}
+ALLREDUCE_REPS = 200
+DP_FRAMES = 96  # params_tpu.yml's rollout_length: one env launch each
+# One process against two ranks of one iteration (tests/test_parallel.py
+# holds the JAX package's sharded iteration to one device so).
+DP_RTOL, DP_ATOL = 1e-3, 1e-5
+# Metrics of the host's clock and counters, not of the learning.
+CLOCK_KEYS = ("rollout_seconds", "learn_seconds", "collectives",
+              "collective_seconds", "steps_per_sec", "iteration", "step",
+              "time")
 
 
 def _emit(obj):
@@ -211,12 +254,12 @@ def _compare_random(name, got, want):
     return max(float((r - r0).abs().max()), _compare_state(name, s, s0))
 
 
-def _time_ms(fn, reps):
-    """Milliseconds per call: CUDA events around ``reps`` calls after a
-    warm-up."""
+def _time_ms(fn, reps, warmup=3):
+    """Milliseconds per call: CUDA events around ``reps`` calls after
+    ``warmup`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -454,38 +497,19 @@ def _phase_random(run, device):
 def _phase_training(device):
     """The Trainer at the full run_tpu_e3 geometry for TRAIN_ITERATIONS
     iterations."""
-    import torch
-
     from q1physrl_torch.algo import checkpoint as ckpt
     from q1physrl_torch.algo.config import load_run_config
-    from q1physrl_torch.algo.ppo import init_train_state
-    from q1physrl_torch.algo.train import Trainer
-    from q1physrl_torch.ops.env_rollout import rollout_actions_autoreset
 
     iterations = TRAIN_ITERATIONS
     with tempfile.TemporaryDirectory(prefix="q1_chip_smoke_") as tmp:
         run = dataclasses.replace(
             load_run_config(str(TRAIN_YAML)), checkpoint_dir=tmp,
             auto_resume=False, max_iterations=iterations)
-        trainer = Trainer(run, device=device)
-        before = {k: v.clone() for k, v in
-                  trainer.ts.policy.state_dict().items()}
-        rollout_actions_autoreset.launches = 0
-        t0 = time.perf_counter()
-        trainer.train()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = rollout_actions_autoreset.launches
+        trained = _train_once(run, device)
         records = [json.loads(line) for line in
                    (Path(tmp) / "logs" / "metrics.jsonl").read_text()
                    .splitlines()]
-        latest = ckpt.latest_checkpoint(tmp)
-        restored = ckpt.restore_checkpoint(
-            latest, init_train_state(1, trainer.env_cfg, run.ppo, device))
-        after = trainer.ts.policy.state_dict()
-        restores = all(torch.equal(v, restored.policy.state_dict()[k])
-                       for k, v in after.items())
-        moved = any(not torch.equal(before[k], v) for k, v in after.items())
+        latest = Path(ckpt.latest_checkpoint(tmp)).name
     per_iter = [{"rollout_seconds": r["rollout_seconds"],
                  "learn_seconds": r["learn_seconds"],
                  "train_steps_per_sec": run.ppo.batch_size
@@ -493,27 +517,524 @@ def _phase_training(device):
                  **{k: r[k] for k in ("kl", "entropy", "vf_loss",
                                       "episode_reward_mean", "mean_reward")}}
                 for r in records]
+    launches = trained["launches"]["rollout_actions_autoreset"]
     result = {"phase": "training", "config": str(TRAIN_YAML.relative_to(ROOT)),
-              "iterations": iterations, "seconds": seconds,
+              "iterations": iterations, "seconds": trained["seconds"],
               "batch_size": run.ppo.batch_size,
               "adam_steps_per_iteration": run.ppo.num_sgd_iter
               * run.ppo.num_minibatches,
               "launches": launches, "per_iteration": per_iter,
-              "checkpoint": Path(latest).name, "checkpoint_restores": restores,
-              "params_moved": moved}
+              "checkpoint": latest,
+              "checkpoint_restores": trained["restores"],
+              "params_moved": trained["moved"]}
     _emit(result)
-    expected = iterations * run.ppo.rollout_length
-    if launches != expected:
-        raise RuntimeError(f"expected one rollout_actions_autoreset launch "
-                           f"per frame ({expected}), counted {launches}")
+    if len(records) != iterations:
+        raise RuntimeError("training: missing iterations")
     for r in records:
-        if not (np.isfinite(r["kl"]) and r["kl"] >= 0
-                and np.isfinite(r["entropy"]) and np.isfinite(r["vf_loss"])):
-            raise RuntimeError(f"training metrics not sane: {r}")
-    if len(records) != iterations or not moved or not restores:
-        raise RuntimeError("training: missing iterations, params did not "
-                           "move, or the checkpoint does not restore")
+        _check_training("training", trained, r, "rollout_actions_autoreset",
+                        iterations * run.ppo.rollout_length)
     return result
+
+
+# --- data-parallel phases ---------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn(task, world, backend, **kwargs):
+    """``task`` in ``world`` fresh processes on card 0, joined by
+    ``backend``; returns what each rank returned.  A rank that fails fails
+    the phase; all are stopped after RANK_TIMEOUT_S."""
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="q1_chip_ranks_") as tmp:
+        init = f"tcp://localhost:{_free_port()}"
+        ctx = mp.start_processes(_rank_main, args=(world, backend, init, task,
+                                                   kwargs, tmp),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{task}: ranks still running after "
+                                       f"{RANK_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [torch.load(Path(tmp) / f"rank{r}.pt", map_location="cpu",
+                           weights_only=False) for r in range(world)]
+
+
+def _rank_main(rank, world, backend, init, task, kwargs, outdir):
+    import torch
+
+    from q1physrl_torch.parallel import distributed
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(backend=backend, init_method=init,
+                           world_size=world, rank=rank, timeout=300)
+    distributed.time_collectives(True)
+    try:
+        out = RANK_TASKS[task](torch.device("cuda", 0), **kwargs)
+    finally:
+        distributed.shutdown()
+    torch.save(out, Path(outdir) / f"rank{rank}.pt")
+
+
+def _params_tpu(ckpt_dir, **ppo_changes):
+    from q1physrl_torch.algo.config import load_run_config
+
+    run = load_run_config(str(PARAMS_YAML))
+    return dataclasses.replace(
+        run, ppo=dataclasses.replace(run.ppo, **ppo_changes),
+        checkpoint_dir=str(ckpt_dir), auto_resume=False, max_iterations=1)
+
+
+def _train_once(run, device):
+    """The Trainer for ``run.max_iterations`` iterations, with the env
+    kernel's launches counted from 0, the params after, whether they moved,
+    and whether the checkpoint it wrote last restores.  Rank 0 writes the
+    metrics to ``<checkpoint_dir>/logs/metrics.jsonl``."""
+    import torch
+
+    from q1physrl_torch.algo import checkpoint as ckpt
+    from q1physrl_torch.algo.ppo import init_train_state
+    from q1physrl_torch.algo.train import Trainer
+    from q1physrl_torch.ops import env_rollout, sharded_rollout
+
+    trainer = Trainer(run, device=device)
+    before = {k: v.clone() for k, v in trainer.ts.policy.state_dict().items()}
+    env_rollout.rollout_actions_autoreset.launches = 0
+    sharded_rollout.sharded_rollout_actions_autoreset.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {
+        "rollout_actions_autoreset":
+            env_rollout.rollout_actions_autoreset.launches,
+        "sharded_rollout_actions_autoreset":
+            sharded_rollout.sharded_rollout_actions_autoreset.launches}
+    after = {k: v.detach().cpu().clone()
+             for k, v in trainer.ts.policy.state_dict().items()}
+    restored = ckpt.restore_checkpoint(
+        ckpt.latest_checkpoint(run.checkpoint_dir),
+        init_train_state(1, trainer.env_cfg, run.ppo, device))
+    return {"mode": trainer.mode, "seconds": seconds, "launches": launches,
+            "params": after,
+            "moved": any(not torch.equal(before[k].cpu(), v)
+                         for k, v in after.items()),
+            "restores": all(torch.equal(v, restored.policy.state_dict()[k]
+                                        .cpu()) for k, v in after.items())}
+
+
+def _metrics_record(ckpt_dir):
+    lines = (Path(ckpt_dir) / "logs" / "metrics.jsonl").read_text()
+    return json.loads(lines.splitlines()[-1])
+
+
+def _learning_metrics(record):
+    return {k: v for k, v in record.items() if k not in CLOCK_KEYS}
+
+
+def _same_metrics(a, b):
+    return set(a) == set(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
+def _check_training(name, result, record, counter, frames):
+    """Sanity of a :func:`_train_once` result and one of its metrics
+    records: one launch of the env kernel per frame (``frames`` counted by
+    ``counter``), finite metrics, params moved, the checkpoint restores."""
+    if result["launches"][counter] != frames:
+        raise RuntimeError(f"{name}: expected {frames} launches of the env "
+                           f"kernel, counted {result['launches']}")
+    if not (np.isfinite(record["kl"]) and record["kl"] >= 0
+            and np.isfinite(record["entropy"])
+            and np.isfinite(record["vf_loss"])):
+        raise RuntimeError(f"{name}: training metrics not sane: {record}")
+    if not (result["moved"] and result["restores"]):
+        raise RuntimeError(f"{name}: params did not move, or the checkpoint "
+                           f"does not restore")
+
+
+def _rank_nccl_w1(device, ckpt_root):
+    """World size 1 on NCCL: the sharded functions against their kernels,
+    and one global-mode iteration (compared in the parent)."""
+    import torch
+
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.ops import env_rollout as er
+    from q1physrl_torch.ops import sharded_rollout as sr
+
+    cfg = dataclasses.replace(load_run_config(str(RUN_YAML)).env,
+                              zero_start_prob=0.3)
+    n, t = PROBE_SHAPE
+    state, ka, ya = rollout_inputs(cfg, n, t, 300, device)
+    ru = _reset_uniforms(n, t, 300, device)
+    pairs = {
+        "sharded_rollout_actions": (sr.sharded_rollout_actions(cfg, state, ka,
+                                                               ya),
+                                    er.rollout_actions(cfg, state, ka, ya)),
+        "sharded_rollout_actions_autoreset": (
+            sr.sharded_rollout_actions_autoreset(cfg, state, ka, ya, ru),
+            er.rollout_actions_autoreset(cfg, state, ka, ya, ru)),
+        "sharded_rollout_random": (sr.sharded_rollout_random(cfg, state, t,
+                                                             seed=9),
+                                   er.rollout_random(cfg, state, t, seed=9)),
+    }
+    bitwise = {}
+    for name, (got, want) in pairs.items():
+        (s, r, d), (s0, r0, d0) = got, want
+        leaves = [torch.equal(getattr(s, f), getattr(s0, f))
+                  for f in ("yaw", "time_remaining", "zero_start",
+                            "last_keys", "last_key_press_time")]
+        leaves += [torch.equal(getattr(s.player, f), getattr(s0.player, f))
+                   for f in ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
+                             "jump_released")]
+        bitwise[name] = (all(leaves) and torch.equal(r, r0)
+                         and torch.equal(d, d0))
+    training = _train_once(_params_tpu(Path(ckpt_root) / "nccl_w1",
+                                       num_sgd_iter=1), device)
+    return {"bitwise": bitwise, "training": training}
+
+
+def _alone(fn, device):
+    """``fn()`` on each rank in turn, the others waiting, so that no other
+    rank's work shares the card while it runs."""
+    from q1physrl_torch.parallel import distributed
+
+    out = None
+    for r in range(distributed.world_size()):
+        distributed.barrier(device)
+        if distributed.rank() == r:
+            out = fn()
+    distributed.barrier(device)
+    return out
+
+
+def _allreduce_ms(x, reps):
+    """Host milliseconds per all-reduce of ``x``, the card synchronized
+    after each."""
+    import torch
+
+    from q1physrl_torch.parallel import distributed
+
+    distributed.all_reduce_sum(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        distributed.all_reduce_sum(x)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _rank_sharded_kernels(run, device):
+    """Each sharded function on this rank's envs, held against one launch on
+    the whole batch at the probe shape and its main path's shape, then
+    timed on its shard."""
+    import torch
+
+    from q1physrl_torch.models import Policy
+    from q1physrl_torch.ops import env_rollout as er
+    from q1physrl_torch.ops import sharded_rollout as sr
+    from q1physrl_torch.parallel import distributed
+    from q1physrl_torch.parallel.mesh import (env_shard, shard_env_axis,
+                                              unshard_env_axis)
+
+    cfg = dataclasses.replace(run.env, zero_start_prob=0.3)
+    rank = distributed.rank()
+    out = {}
+    for name in ("sharded_rollout_actions",
+                 "sharded_rollout_actions_autoreset"):
+        autoreset = name.endswith("autoreset")
+        checks = {}
+        for shape, (n, t) in (("probe", PROBE_SHAPE),
+                              ("main", SHARDED_SHAPES[name])):
+            state, ka, ya = rollout_inputs(cfg, n, t, 200, device)
+            ru = _reset_uniforms(n, t, 200, device)
+            shard = env_shard(n)
+            local = shard_env_axis(state, shard)
+            lka, lya, lru = shard.take(ka), shard.take(ya), shard.take(ru)
+            if autoreset:
+                sharded = lambda: sr.sharded_rollout_actions_autoreset(
+                    cfg, local, lka, lya, lru)
+                plain = lambda: er.rollout_actions_autoreset_plain(
+                    cfg, local, lka, lya, lru)
+                want = er.rollout_actions_autoreset(cfg, state, ka, ya, ru)
+                dones = want[2]
+            else:
+                sharded = lambda: sr.sharded_rollout_actions(cfg, local, lka,
+                                                             lya)
+                plain = lambda: er.rollout_actions_plain(cfg, local, lka, lya)
+                want = er.rollout_actions(cfg, state, ka, ya)
+            s, r, d = sharded()
+            got = (unshard_env_axis(s, shard),
+                   distributed.gather_env_axis(r, shard),
+                   distributed.gather_env_axis(d, shard))
+            err = _compare(f"{name} {shape}", got, want)
+            checks[shape] = {"n": n, "t": t, "max_abs_err": err,
+                             "dones": int(want[2].sum())}
+        # Timed: the last pass's calls, at the main path's shape.
+        bound = (_bound_autoreset(local, lka, lya, shard.take(dones))
+                 if autoreset else _bound(local, lka, lya))
+        timed = _alone(lambda: _timed(sharded, plain, 1000, 20), device)
+        out[name] = {"checks": checks, "n_rank": shard.local, "t": t,
+                     **timed, **bound}
+
+    checks = {}
+    for shape, (n, t) in (("probe", PROBE_SHAPE),
+                          ("main", SHARDED_SHAPES["sharded_rollout_random"])):
+        state, _, _ = rollout_inputs(cfg, n, 1, 201, device)
+        shard = env_shard(n)
+        local = shard_env_axis(state, shard)
+        rank_seed = 3 + rank * sr.SEED_STRIDE
+        s, r, d = sr.sharded_rollout_random(cfg, local, t, seed=3)
+        want = er.rollout_random(cfg, local, t, seed=rank_seed)
+        err = _compare_random(f"sharded_rollout_random {shape}", (s, r,
+                                                                   want[2]),
+                              want)
+        checks[shape] = {"n": n, "t": t, "max_abs_err": err,
+                         "done_count": int(d), "rank_done_count":
+                         int(want[2])}
+    # Timed at the main path's shape, the last pass's.
+    sharded = lambda: sr.sharded_rollout_random(cfg, local, t, seed=3)
+    kernel = lambda: er.rollout_random(cfg, local, t, seed=rank_seed)
+    # The all-reduce couples the ranks: ms is timed on both at once.
+    ms = _time_ms(sharded, 3)
+    graph_ms = _alone(lambda: _graph_ms(kernel, 3), device)
+    plain_ms = _alone(lambda: _time_ms(
+        lambda: er.rollout_random_plain(cfg, local, t, seed=rank_seed), 1,
+        warmup=0), device)
+    out["sharded_rollout_random"] = {
+        "checks": checks, "n_rank": shard.local, "t": t, "ms": ms,
+        "graph_ms": graph_ms, "plain_ms": plain_ms,
+        **_bound_random(local, t, want[2])}
+
+    n_params = sum(p.numel() for p in Policy(run.env).parameters())
+    out["allreduce_ms"] = {
+        "done_count": _allreduce_ms(torch.zeros((), dtype=torch.int64,
+                                                device=device),
+                                    ALLREDUCE_REPS),
+        "adam_step": _allreduce_ms(torch.zeros(n_params + WORLD * 8,
+                                               device=device),
+                                   ALLREDUCE_REPS),
+        "adam_step_floats": n_params + WORLD * 8}
+    return out
+
+
+def _rank_gloo(device, ckpt_root):
+    """The sharded kernels, then the main paths across the ranks."""
+    from q1physrl_torch import bench
+    from q1physrl_torch.algo import evaluate
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.ops import sharded_rollout as sr
+    from q1physrl_torch.parallel.mesh import env_shard
+
+    out = {"kernels": _rank_sharded_kernels(load_run_config(str(RUN_YAML)),
+                                            device)}
+
+    sr.sharded_rollout_actions.launches = 0
+    sto, det = evaluate.main([str(RUN_YAML), str(CHECKPOINT), "512",
+                              "--device", str(device)])
+    out["scoring"] = {"stochastic": sto, "deterministic": det,
+                      "launches": sr.sharded_rollout_actions.launches}
+
+    sr.sharded_rollout_random.launches = 0
+    rate = bench.bench_env_kernel(**BENCH_ENV, device=device,
+                                  shard=env_shard(BENCH_ENV["n"]))
+    out["bench_env"] = {"env_steps_per_sec": rate,
+                        "launches": sr.sharded_rollout_random.launches}
+
+    root = Path(ckpt_root)
+    out["one_epoch"] = _train_once(_params_tpu(root / "global_1epoch",
+                                               num_sgd_iter=1), device)
+    out["global"] = _train_once(_params_tpu(root / "global"), device)
+    out["spmd"] = _train_once(dataclasses.replace(
+        _params_tpu(root / "spmd"), use_shard_map=True), device)
+    return out
+
+
+RANK_TASKS = {"nccl_w1": _rank_nccl_w1, "gloo": _rank_gloo}
+
+
+def _phase_data_parallel(device, scores, steps):
+    """Phases 7-9: the reference iteration here, then NCCL at world size 1
+    and two gloo ranks in fresh processes.  ``scores``: phase 4's
+    (stochastic, deterministic) means; ``steps``: env steps per scoring
+    episode.  Returns the kernels-line entries of the three sharded
+    functions."""
+    import torch
+
+    from q1physrl_torch.ops.sharded_rollout import SEED_STRIDE
+
+    with tempfile.TemporaryDirectory(prefix="q1_chip_dp_") as root:
+        reference = _train_once(_params_tpu(Path(root) / "reference",
+                                            num_sgd_iter=1), device)
+        ref_record = _metrics_record(Path(root) / "reference")
+        _emit({"phase": "reference", "config":
+               str(PARAMS_YAML.relative_to(ROOT)), "num_sgd_iter": 1,
+               "seconds": reference["seconds"],
+               "launches": reference["launches"],
+               "metrics": _learning_metrics(ref_record)})
+        # One process's full iteration: what the two ranks' are timed
+        # against.
+        full = _train_once(_params_tpu(Path(root) / "reference_full"),
+                           device)
+        full_record = _metrics_record(Path(root) / "reference_full")
+        _check_training("one process, full iteration", full, full_record,
+                        "rollout_actions_autoreset", DP_FRAMES)
+        _emit({"phase": "reference_full", "seconds": full["seconds"],
+               "rollout_seconds": full_record["rollout_seconds"],
+               "learn_seconds": full_record["learn_seconds"],
+               "launches": full["launches"]})
+
+        t0 = time.perf_counter()
+        (w1,) = _spawn("nccl_w1", 1, "nccl", ckpt_root=root)
+        w1_record = _metrics_record(Path(root) / "nccl_w1")
+        same_params = all(torch.equal(v, reference["params"][k])
+                          for k, v in w1["training"]["params"].items())
+        same_metrics = _same_metrics(_learning_metrics(w1_record),
+                                     _learning_metrics(ref_record))
+        _emit({"phase": "nccl_w1", "seconds": time.perf_counter() - t0,
+               "sharded_equals_kernel_bitwise": w1["bitwise"],
+               "mode": w1["training"]["mode"],
+               "launches": w1["training"]["launches"],
+               "params_equal_one_process": same_params,
+               "metrics_equal_one_process": same_metrics})
+        if not all(w1["bitwise"].values()):
+            raise AssertionError(f"NCCL world size 1: a sharded function "
+                                 f"differs from its kernel: {w1['bitwise']}")
+        if not (same_params and same_metrics
+                and w1["training"]["mode"] == "global"):
+            raise AssertionError("NCCL world size 1: the iteration differs "
+                                 "from one process's")
+
+        t0 = time.perf_counter()
+        ranks = _spawn("gloo", WORLD, "gloo", ckpt_root=root)
+        seconds = time.perf_counter() - t0
+        records = {name: _metrics_record(Path(root) / sub) for name, sub in
+                   (("one_epoch", "global_1epoch"), ("global", "global"),
+                    ("spmd", "spmd"))}
+
+    # The sharded kernels.
+    kernels = [r["kernels"] for r in ranks]
+    for name in SHARDED_SHAPES:
+        for r, k in enumerate(kernels):
+            _emit({"phase": "sharded_kernel", "kernel": name, "rank": r,
+                   **k[name]})
+    for shape in ("probe", "main"):
+        checks = [k["sharded_rollout_random"]["checks"][shape]
+                  for k in kernels]
+        if any(c["done_count"] != sum(x["rank_done_count"] for x in checks)
+               for c in checks):
+            raise AssertionError(f"sharded_rollout_random {shape}: the "
+                                 f"summed done count is not the ranks' "
+                                 f"{checks}")
+        if any(c["max_abs_err"] != 0.0 for c in checks):
+            raise AssertionError(f"sharded_rollout_random {shape}: not "
+                                 f"bitwise equal to rollout_random with seed "
+                                 f"+ rank * {SEED_STRIDE}")
+    _emit({"phase": "allreduce", "backend": "gloo", "world": WORLD,
+           "per_rank": [k["allreduce_ms"] for k in kernels]})
+
+    # The main paths across the ranks.
+    for r in ranks:
+        sto, det = r["scoring"]["stochastic"], r["scoring"]["deterministic"]
+        if not (abs(sto["mean"] - STOCHASTIC_MEAN) <= STOCHASTIC_TOL
+                and abs(det["mean"] - DETERMINISTIC) <= DETERMINISTIC_TOL):
+            raise RuntimeError(f"two-rank scores out of range: {sto} {det}")
+    _emit({"phase": "ranks_scoring", "world": WORLD,
+           "stochastic": ranks[0]["scoring"]["stochastic"]["mean"],
+           "deterministic": ranks[0]["scoring"]["deterministic"]["mean"],
+           "one_process": scores,
+           "equal_to_one_process": (
+               ranks[0]["scoring"]["stochastic"]["mean"] == scores[0]
+               and ranks[0]["scoring"]["deterministic"]["mean"] == scores[1]),
+           "launches_per_rank": [r["scoring"]["launches"] for r in ranks]})
+    _emit({"phase": "ranks_bench_env", "world": WORLD, **BENCH_ENV,
+           "env_steps_per_sec": ranks[0]["bench_env"]["env_steps_per_sec"],
+           "launches_per_rank": [r["bench_env"]["launches"] for r in ranks]})
+    for r in ranks:
+        if r["scoring"]["launches"] != 2 * steps:
+            raise RuntimeError(f"expected one sharded_rollout_actions launch "
+                               f"per env step per rank ({2 * steps}), "
+                               f"counted {r['scoring']['launches']}")
+        if r["bench_env"]["launches"] != BENCH_ENV["reps"] + 1:
+            raise RuntimeError(f"expected {BENCH_ENV['reps'] + 1} "
+                               f"sharded_rollout_random launches per rank, "
+                               f"counted {r['bench_env']['launches']}")
+
+    for name in ("one_epoch", "global", "spmd"):
+        for r in ranks:
+            _check_training(f"{name} rank", r[name], records[name],
+                            "sharded_rollout_actions_autoreset", DP_FRAMES)
+        equal_params = all(torch.equal(v, ranks[1][name]["params"][k])
+                           for k, v in ranks[0][name]["params"].items())
+        rec = records[name]
+        _emit({"phase": "ranks_training", "run": name, "world": WORLD,
+               "mode": ranks[0][name]["mode"], "seconds":
+               ranks[0][name]["seconds"],
+               "rollout_seconds": rec["rollout_seconds"],
+               "learn_seconds": rec["learn_seconds"],
+               "collective_seconds": rec["collective_seconds"],
+               "collectives": rec["collectives"],
+               "launches_per_rank": [r[name]["launches"] for r in ranks],
+               "params_equal_across_ranks": equal_params,
+               "metrics": _learning_metrics(rec)})
+        if not equal_params:
+            raise AssertionError(f"{name}: params differ across ranks")
+    got, want = (_learning_metrics(records["one_epoch"]),
+                 _learning_metrics(ref_record))
+    for k in want:
+        if not (np.isnan(want[k]) and np.isnan(got[k])):
+            np.testing.assert_allclose(got[k], want[k], rtol=DP_RTOL,
+                                       atol=DP_ATOL, err_msg=f"two ranks, {k}")
+    _emit({"phase": "ranks_vs_one_process", "rtol": DP_RTOL, "atol": DP_ATOL,
+           "differences": {k: got[k] - want[k] for k in want},
+           "seconds": seconds})
+
+    def entry(name, line, launches):
+        k = kernels[0][name]
+        return {"name": name, "route": "cuda",
+                "source": "q1physrl_torch/ops/sharded_rollout.py",
+                "kernel_source": "q1physrl_torch/ops/csrc/env_rollout.cu",
+                "collective": "all_reduce" if name.endswith("random")
+                else "none",
+                "replaces": f"q1physrl_tpu/ops/sharded_rollout.py:{line}",
+                "launches": launches,
+                "max_abs_err": max(kk[name]["checks"]["main"]["max_abs_err"]
+                                   for kk in kernels),
+                "max_abs_err_all_shapes": max(
+                    c["max_abs_err"] for kk in kernels
+                    for c in kk[name]["checks"].values()),
+                "ms": max(kk[name]["ms"] for kk in kernels),
+                "graph_ms": max(kk[name]["graph_ms"] for kk in kernels),
+                "plain_ms": max(kk[name]["plain_ms"] for kk in kernels),
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None, "world": WORLD, "n_rank": k["n_rank"],
+                "t": k["t"], "allreduce_ms": (
+                    kernels[0]["allreduce_ms"]["done_count"]
+                    if name.endswith("random") else None)}
+
+    return [entry("sharded_rollout_actions", 46, ranks[0]["scoring"]
+                  ["launches"]),
+            entry("sharded_rollout_actions_autoreset", 75,
+                  ranks[0]["global"]["launches"]
+                  ["sharded_rollout_actions_autoreset"]),
+            entry("sharded_rollout_random", 98, ranks[0]["bench_env"]
+                  ["launches"])]
 
 
 def main(device=None) -> int:
@@ -599,7 +1120,11 @@ def main(device=None) -> int:
         raise RuntimeError(f"expected {BENCH_ENV['reps'] + 1} rollout_random "
                            f"launches, counted {random_launches}")
 
-    # 7. kernels line, 8. result line
+    # 7-9. the data-parallel phases
+    sharded_entries = _phase_data_parallel(device, (sto["mean"],
+                                                    det["mean"]), steps)
+
+    # the kernels line, then the result line
     source = "q1physrl_torch/ops/csrc/env_rollout.cu"
     pallas = "q1physrl_tpu/ops/env_rollout_pallas.py"
 
@@ -620,6 +1145,7 @@ def main(device=None) -> int:
               autoreset_t["training"], autoreset_err, autoreset_t),
         entry("rollout_random", 343, random_launches, random_t["bench"],
               random_err, random_t),
+        *sharded_entries,
     ]})
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

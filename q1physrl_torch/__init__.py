@@ -12,6 +12,9 @@ imports), holding the same modules in PyTorch's idiom:
 - ``analyse``         the zero-start scoring instrument
 - ``algo``            run configs, PPO, checkpoints, the training driver
                       and the evaluation CLI
+- ``parallel``        data-parallel training over ``torch.distributed``:
+                      process groups, the env axis split by rank, the
+                      explicit data-parallel iteration
 - ``utils``           the metrics writer
 - ``bench``           the throughput bench
 

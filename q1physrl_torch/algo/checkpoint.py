@@ -8,7 +8,11 @@ A checkpoint is a directory ``iter_%07d`` holding
 - ``checkpoint`` and ``checkpoint.tune_metadata``: the policy as an RLLib
   pickle (models/export_rllib.py), the format the evaluate CLI scores.
 
-Env state is left out: episodes restart on resume.
+Env state is left out: episodes restart on resume.  So the format does
+not depend on how many ranks trained: a checkpoint of a multi-rank run
+restores into one process, and the other way round.  In a process group
+rank 0 alone writes, and every rank waits for it; every rank restores from
+the same files.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..models.export_rllib import export_policy_params
+from ..parallel import distributed
 
 __all__ = ("save_checkpoint", "restore_checkpoint", "latest_checkpoint")
 
@@ -29,8 +34,16 @@ POLICY_FILE = "checkpoint"
 
 def save_checkpoint(directory: str, ts, iteration: int) -> str:
     """Write ``ts`` under ``directory/iter_%07d`` (replacing what is there);
-    return that path."""
+    return that path.  In a process group only rank 0 writes, and every
+    rank returns once it has."""
     path = os.path.abspath(os.path.join(directory, f"iter_{iteration:07d}"))
+    if distributed.rank() == 0:
+        _write(path, ts)
+    distributed.barrier(ts.kl_coeff.device)
+    return path
+
+
+def _write(path: str, ts):
     os.makedirs(path, exist_ok=True)
     params = ts.policy.state_dict()
     tree = {
@@ -48,7 +61,6 @@ def save_checkpoint(directory: str, ts, iteration: int) -> str:
     export_policy_params(params, os.path.join(path, POLICY_FILE),
                          iteration=ts.iteration,
                          timesteps_total=int(ts.env_steps))
-    return path
 
 
 def restore_checkpoint(path: str, ts):

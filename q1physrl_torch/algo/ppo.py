@@ -12,6 +12,17 @@ One iteration (:func:`train_iter`) is
 and is split into :func:`rollout` and :func:`learn`, so that a caller can
 time the halves or feed :func:`learn` a trajectory of its own.
 
+Given an env shard (``parallel.mesh.EnvShard``), the same functions run one
+rank of data-parallel training with the semantics of one process: every
+rank holds the run's generator alike and draws each random tensor for the
+whole batch, keeping its envs' share; the learning half gathers the batch
+over the ranks once, and each rank computes the gradient of its 1/W of
+every minibatch, summed over the ranks before the (replicated) Adam step.
+Advantage standardization and the metrics use sums over the ranks.  In one
+process every such sum is over one rank, so the two paths run the same
+operations.  (``parallel/spmd.py`` holds the other multi-rank mode, with
+local minibatches.)
+
 The loss is RLLib 0.8.4's PPOLoss (ppo_tf_policy.py): clipped surrogate,
 adaptive KL penalty against the behaviour distribution, entropy bonus, and
 the max-of-clipped/unclipped value loss with vf_clip_param.  Adam follows
@@ -41,12 +52,16 @@ from ..env import core as env_core
 from ..env.config import Config as EnvConfig
 from ..models.policy import Policy, action_dist
 from ..ops.env_rollout import rollout_actions_autoreset
+from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
+from ..parallel import distributed
 from .config import PPOConfig
 
 __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
            "Trajectory", "init_train_state", "rollout", "compute_gae",
-           "ppo_loss", "adam_update", "sgd_epochs", "update_kl_coeff",
-           "learn", "train_iter")
+           "ppo_loss", "loss_and_stats", "aux_from_stats", "adam_update",
+           "sgd_epochs", "update_kl_coeff", "standardize", "flat_batch",
+           "iteration_coeffs", "episode_metrics", "learn", "next_state",
+           "train_iter")
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # TF AdamOptimizer defaults
 
@@ -213,17 +228,23 @@ def init_train_state(seed: int, env_cfg: EnvConfig, ppo: PPOConfig,
 
 def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
             env_state: env_core.EnvState, stats: EpisodeStats,
-            generator: torch.Generator):
+            generator: torch.Generator, shard=None):
     """Collect T frames from N envs with the policy in the loop.
 
     Each frame samples the policy, draws the five reset uniforms from
     ``generator`` and advances the envs with one T=1 call of
-    ``rollout_actions_autoreset`` (one kernel launch on the card).
+    ``rollout_actions_autoreset`` (one kernel launch on the card; in a
+    process group, ``sharded_rollout_actions_autoreset`` on the rank's
+    envs).  With an env ``shard`` the draws are made for the whole batch
+    and cut to the shard's envs.
 
     Returns (env_state', stats', trajectory, bootstrap_value).
     """
     n = env_state.num_envs
     device = env_state.yaw.device
+    env_step = (sharded_rollout_actions_autoreset
+                if distributed.is_initialized() else rollout_actions_autoreset)
+    draw = dict(generator=generator, dtype=torch.float32, device=device)
     frames = []
     with torch.no_grad():
         for _ in range(ppo.rollout_length):
@@ -233,12 +254,12 @@ def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                                            torch.float32)
             logits, value = policy(obs)
             dist = action_dist(env_cfg, logits)
-            ka, ya = dist.sample(generator)
+            ka, ya = dist.sample(generator, shard)
             logp = dist.logp(ka, ya)
-            ru = torch.rand((5, n), generator=generator, dtype=torch.float32,
-                            device=device)
+            ru = (torch.rand((5, n), **draw) if shard is None
+                  else shard.draw(torch.rand, (5, n), 1, **draw))
             zero_start = env_state.zero_start
-            env_state, rewards, dones = rollout_actions_autoreset(
+            env_state, rewards, dones = env_step(
                 env_cfg, env_state, ka[None], ya[None], ru[None])
             stats = stats.update(rewards[0], dones[0], zero_start)
             frames.append((obs, ka, ya, logits, logp, value, rewards[0],
@@ -269,10 +290,17 @@ def compute_gae(ppo: PPOConfig, reward, done, value, bootstrap_value):
     return advantages, advantages + value
 
 
-def ppo_loss(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
-             batch: Batch, kl_coeff, entropy_coeff=None):
-    """RLLib 0.8.4 PPOLoss (ppo_tf_policy.py).  Returns (total, aux) with
-    aux the detached per-batch means."""
+# The means among the loss statistics of loss_and_stats, in its order.
+_AUX_MEANS = ("policy_loss", "vf_loss", "kl", "entropy")
+
+
+def loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+                   batch: Batch, kl_coeff, entropy_coeff=None,
+                   scale: float = 1.0):
+    """The loss of :func:`ppo_loss` times ``scale``, and its statistics as
+    one detached (8,) tensor: the means of -surrogate, the value loss, the
+    KL and the entropy, then the mean and variance (over N) of the value
+    targets and of the value residuals (see :func:`aux_from_stats`)."""
     if entropy_coeff is None:
         entropy_coeff = ppo.entropy_coeff
     logits, value = policy(batch.obs)
@@ -299,18 +327,44 @@ def ppo_loss(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     total = torch.mean(-surrogate + kl_coeff * action_kl
                        + ppo.vf_loss_coeff * vf_loss
                        - entropy_coeff * entropy)
+    if scale != 1.0:
+        total = total * scale
     with torch.no_grad():
         # Variances divide by N, as the reference's do.
-        aux = {
-            "policy_loss": torch.mean(-surrogate),
-            "vf_loss": torch.mean(vf_loss),
-            "kl": torch.mean(action_kl),
-            "entropy": torch.mean(entropy),
-            "vf_explained_var": 1.0 - torch.var(
-                batch.value_target - value, correction=0)
-            / (torch.var(batch.value_target, correction=0) + 1e-8),
-        }
-    return total, aux
+        residual = batch.value_target - value
+        stats = torch.stack([
+            torch.mean(-surrogate), torch.mean(vf_loss),
+            torch.mean(action_kl), torch.mean(entropy),
+            torch.mean(batch.value_target),
+            torch.var(batch.value_target, correction=0),
+            torch.mean(residual), torch.var(residual, correction=0)])
+    return total, stats
+
+
+def aux_from_stats(stats) -> dict:
+    """(..., W, 8) loss statistics of W equal shares of a minibatch ->
+    {name: (...) tensor}: the means over the shares, and
+    ``vf_explained_var`` from the pooled variances.  With W=1 these are the
+    one share's own values, exactly."""
+    w = stats.shape[-2]
+    mean = stats.sum(-2) / w
+
+    def pooled_var(i):  # column i holds the shares' means, i + 1 variances
+        spread = torch.square(stats[..., i] - mean[..., i, None]).sum(-1)
+        return stats[..., i + 1].sum(-1) / w + spread / w
+
+    aux = {k: mean[..., j] for j, k in enumerate(_AUX_MEANS)}
+    aux["vf_explained_var"] = 1.0 - pooled_var(6) / (pooled_var(4) + 1e-8)
+    return aux
+
+
+def ppo_loss(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+             batch: Batch, kl_coeff, entropy_coeff=None):
+    """RLLib 0.8.4 PPOLoss (ppo_tf_policy.py).  Returns (total, aux) with
+    aux the detached per-batch means."""
+    total, stats = loss_and_stats(env_cfg, ppo, policy, batch, kl_coeff,
+                                  entropy_coeff)
+    return total, aux_from_stats(stats[None])
 
 
 def _clip_by_global_norm(grads, max_norm: float):
@@ -352,21 +406,45 @@ def adam_update(ppo: PPOConfig, params, grads, state: AdamState,
     return state
 
 
+def _sum_over_ranks(grads, stats, shard):
+    """One all-reduce per Adam step: the gradients summed over the ranks,
+    and the (W, 8) loss statistics of every rank (each writes its row of a
+    zeroed block)."""
+    block = torch.zeros((shard.world_size, stats.numel()), dtype=stats.dtype,
+                        device=stats.device)
+    block[shard.rank] = stats
+    flat = distributed.all_reduce_sum(
+        torch.cat([g.reshape(-1) for g in grads] + [block.reshape(-1)]))
+    parts = torch.split(flat, [g.numel() for g in grads] + [block.numel()])
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            parts[-1].view_as(block))
+
+
 def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                opt_state: AdamState, kl_coeff, batch: Batch,
                generator: torch.Generator, entropy_coeff=None, lr=None,
-               perms=None):
+               perms=None, shard=None):
     """num_sgd_iter epochs of minibatched Adam over the flattened batch.
 
     ``perms``: optional (num_sgd_iter, n_mb * mb_size) permutations of the
     batch indices; by default each epoch draws one from ``generator`` and
     keeps its first n_mb * mb_size entries.
 
+    With an env ``shard`` the batch is the global one, alike on every rank;
+    each rank takes its 1/W of every minibatch's rows, and the gradients of
+    the shares of the minibatch mean are summed over the ranks before the
+    step.
+
     Returns (opt_state, aux): aux holds the last epoch's means of the
     per-minibatch loss statistics (RLLib's update_kl reads that KL).
     """
     n_mb = ppo.num_minibatches
     mb_size = ppo.batch_size // n_mb
+    w, r = (1, 0) if shard is None else (shard.world_size, shard.rank)
+    if mb_size % w:
+        raise ValueError(f"minibatches of {mb_size} rows do not split evenly "
+                         f"over {w} ranks")
+    rows = mb_size // w
     params = [dict(policy.named_parameters())[k] for k in opt_state.mu]
     device = batch.obs.device
     aux = {}
@@ -376,16 +454,24 @@ def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                                   device=device)[:n_mb * mb_size]
         else:
             perm = torch.as_tensor(perms[epoch], device=device)
-        shuffled = Batch(*(x[perm] for x in batch))
+        # This rank's rows of each minibatch, minibatch after minibatch.
+        mine = perm.view(n_mb, mb_size)[:, r * rows:(r + 1) * rows]
+        shuffled = Batch(*(x[mine.reshape(-1)] for x in batch))
         stats = []
         for j in range(n_mb):
-            mb = Batch(*(x[j * mb_size:(j + 1) * mb_size] for x in shuffled))
-            total, mb_aux = ppo_loss(env_cfg, ppo, policy, mb, kl_coeff,
-                                     entropy_coeff)
+            mb = Batch(*(x[j * rows:(j + 1) * rows] for x in shuffled))
+            total, mb_stats = loss_and_stats(env_cfg, ppo, policy, mb,
+                                             kl_coeff, entropy_coeff,
+                                             scale=1.0 / w)
             grads = torch.autograd.grad(total, params)
+            if shard is None:
+                mb_stats = mb_stats[None]
+            else:
+                grads, mb_stats = _sum_over_ranks(grads, mb_stats, shard)
             opt_state = adam_update(ppo, params, grads, opt_state, lr)
-            stats.append(mb_aux)
-        aux = {k: torch.stack([s[k] for s in stats]).mean() for k in stats[0]}
+            stats.append(mb_stats)
+        aux = {k: v.mean() for k, v in
+               aux_from_stats(torch.stack(stats)).items()}
     return opt_state, aux
 
 
@@ -398,84 +484,130 @@ def update_kl_coeff(ppo: PPOConfig, kl_coeff, sampled_kl, kl_target=None):
         torch.where(sampled_kl < 0.5 * kl_target, kl_coeff * 0.5, kl_coeff))
 
 
+def flat_batch(traj: Trajectory, advantages, value_targets, shard=None):
+    """The (T * N, ...) training batch, in the order t * N + env; with an
+    env shard, gathered over the ranks (one all-reduce of the columns
+    joined in one float tensor), the same on every rank."""
+    columns = [traj.obs, traj.key_actions.transpose(1, 2),  # (T, n, K)
+               traj.yaw_actions, traj.logits, traj.logp, traj.value,
+               advantages, value_targets]
+    if shard is not None:
+        t, n = traj.reward.shape
+        dtype = traj.logits.dtype
+        joined = [x.reshape(t, n, -1).to(dtype) for x in columns]
+        gathered = distributed.gather_env_axis(torch.cat(joined, -1), shard,
+                                               dim=1)
+        parts = torch.split(gathered, [x.shape[-1] for x in joined], -1)
+        columns = [p.reshape(p.shape[:2] + x.shape[2:]).to(x.dtype)
+                   for p, x in zip(parts, columns)]
+    t, n = columns[-1].shape
+    return Batch(*(x.reshape((t * n,) + tuple(x.shape[2:]))
+                   for x in columns))
+
+
+def episode_metrics(stats: EpisodeStats, reward_sum, batch_size: int,
+                    total, maximum) -> dict:
+    """The episode metrics from the accumulators, with the scalar sums
+    reduced by ``total`` and the max by ``maximum`` (over the ranks, or
+    the identity in one process), and the mean reward of a batch of
+    ``batch_size`` env steps whose rewards sum (here) to ``reward_sum``."""
+    sums = total(torch.stack([stats.finished, stats.ret_sum, stats.len_sum,
+                              stats.zs_finished, stats.zs_ret_sum,
+                              reward_sum]))
+    finished, ret_sum, len_sum, zs_finished, zs_ret_sum, reward = sums
+    nan = float("nan")
+    has_ep = finished > 0
+    has_zs = zs_finished > 0
+    return {
+        "episode_reward_mean": torch.where(
+            has_ep, ret_sum / torch.clamp(finished, min=1), nan),
+        "episode_reward_max": torch.where(has_ep, maximum(stats.ret_max),
+                                          nan),
+        "episode_len_mean": torch.where(
+            has_ep, len_sum / torch.clamp(finished, min=1), nan),
+        "episodes_total": finished,
+        "zero_start_total_reward_mean": torch.where(
+            has_zs, zs_ret_sum / torch.clamp(zs_finished, min=1), nan),
+        "zero_start_episodes": zs_finished,
+        "mean_reward": reward / batch_size,
+    }
+
+
+def standardize(advantages, count: int, total):
+    """RLLib standardizes advantages over the whole train batch: (a - mean)
+    / max(std, 1e-4), the moments in two passes over sums of ``count``
+    elements that ``total`` reduces (over the ranks, or the identity in one
+    process)."""
+    mean = total(advantages.sum()) / count
+    var = total(torch.square(advantages - mean).sum()) / count
+    return (advantages - mean) / torch.clamp(torch.sqrt(var), min=1e-4)
+
+
+def iteration_coeffs(ppo: PPOConfig, ts: TrainState,
+                     coeffs: Optional[Coeffs] = None):
+    """(entropy_coeff, lr, kl_target) of an iteration: ``coeffs`` when
+    given, else the entropy schedule read at the env steps before the
+    iteration (or the fixed coefficient) and None for the configured lr and
+    KL target."""
+    if coeffs is not None:
+        return tuple(coeffs)
+    if ppo.entropy_coeff_schedule is not None:
+        return (_interp_schedule(ppo.entropy_coeff_schedule, ts.env_steps),
+                None, None)
+    return ppo.entropy_coeff, None, None
+
+
 def learn(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
           traj: Trajectory, bootstrap_value, coeffs: Optional[Coeffs] = None,
-          perms=None):
+          perms=None, shard=None):
     """The learning half of an iteration on a trajectory whose episode
     statistics are already in ``ts.stats``: GAE, standardization,
     :func:`sgd_epochs`, the KL coefficient.  Returns (TrainState, metrics)
-    with metrics as 0-dim tensors; ``perms`` as in :func:`sgd_epochs`."""
+    with metrics as 0-dim tensors; ``perms`` as in :func:`sgd_epochs`.
+    With an env ``shard``, one rank's part of the global iteration (see the
+    module's docstring)."""
+    w = 1 if shard is None else shard.world_size
+    total = (lambda x: x) if shard is None else distributed.all_reduce_sum
+    t, n = traj.reward.shape
     advantages, value_targets = compute_gae(ppo, traj.reward, traj.done,
                                             traj.value, bootstrap_value)
-    # RLLib standardizes advantages over the whole train batch.
-    advantages = ((advantages - advantages.mean())
-                  / torch.clamp(advantages.std(correction=0), min=1e-4))
+    advantages = standardize(advantages, t * n * w, total)
+    batch = flat_batch(traj, advantages, value_targets, shard)
 
-    t, n = traj.reward.shape
-    flat = lambda x: x.reshape((t * n,) + tuple(x.shape[2:]))
-    batch = Batch(
-        obs=flat(traj.obs),
-        key_actions=flat(traj.key_actions.transpose(1, 2)),  # (B, K)
-        yaw_actions=flat(traj.yaw_actions),
-        logits=flat(traj.logits),
-        logp=flat(traj.logp),
-        value=flat(traj.value),
-        advantage=flat(advantages),
-        value_target=flat(value_targets),
-    )
-
-    if coeffs is not None:
-        entropy_coeff, lr, kl_target = coeffs
-    else:
-        lr = kl_target = None
-        if ppo.entropy_coeff_schedule is not None:
-            # Read at the env steps before this iteration.
-            entropy_coeff = _interp_schedule(ppo.entropy_coeff_schedule,
-                                             ts.env_steps)
-        else:
-            entropy_coeff = ppo.entropy_coeff
+    entropy_coeff, lr, kl_target = iteration_coeffs(ppo, ts, coeffs)
     opt_state, aux = sgd_epochs(env_cfg, ppo, ts.policy, ts.opt_state,
                                 ts.kl_coeff, batch, ts.generator,
-                                entropy_coeff, lr, perms)
+                                entropy_coeff, lr, perms, shard)
     kl_coeff = update_kl_coeff(ppo, ts.kl_coeff, aux["kl"], kl_target)
+    maximum = (lambda x: x) if shard is None else distributed.all_reduce_max
+    metrics = {**episode_metrics(ts.stats, traj.reward.sum(), t * n * w,
+                                 total, maximum),
+               "kl_coeff": kl_coeff, **aux}
+    return next_state(ts, opt_state, kl_coeff, t * n * w), metrics
 
+
+def next_state(ts: TrainState, opt_state: AdamState, kl_coeff,
+               env_steps: int) -> TrainState:
+    """The TrainState after an iteration of ``env_steps`` env steps:
+    finished-episode accumulators restart; the live episodes' running return
+    and length carry over."""
     stats = ts.stats
-    nan = float("nan")
-    has_ep = stats.finished > 0
-    has_zs = stats.zs_finished > 0
-    metrics = {
-        "episode_reward_mean": torch.where(
-            has_ep, stats.ret_sum / torch.clamp(stats.finished, min=1), nan),
-        "episode_reward_max": torch.where(has_ep, stats.ret_max, nan),
-        "episode_len_mean": torch.where(
-            has_ep, stats.len_sum / torch.clamp(stats.finished, min=1), nan),
-        "episodes_total": stats.finished,
-        "zero_start_total_reward_mean": torch.where(
-            has_zs, stats.zs_ret_sum / torch.clamp(stats.zs_finished, min=1),
-            nan),
-        "zero_start_episodes": stats.zs_finished,
-        "kl_coeff": kl_coeff,
-        "mean_reward": traj.reward.mean(),
-        **aux,
-    }
-
-    new_ts = dataclasses.replace(
+    return dataclasses.replace(
         ts, opt_state=opt_state,
-        # Finished-episode accumulators restart each iteration; the live
-        # episodes' running return and length carry over.
-        stats=EpisodeStats.zeros(n, stats.ep_return.device,
+        stats=EpisodeStats.zeros(stats.ep_return.shape[0],
+                                 stats.ep_return.device,
                                  ep_return=stats.ep_return,
                                  ep_len=stats.ep_len),
         kl_coeff=kl_coeff, iteration=ts.iteration + 1,
-        env_steps=float(np.float32(ts.env_steps) + np.float32(t * n)))
-    return new_ts, metrics
+        env_steps=float(np.float32(ts.env_steps) + np.float32(env_steps)))
 
 
 def train_iter(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
-               coeffs: Optional[Coeffs] = None):
+               coeffs: Optional[Coeffs] = None, shard=None):
     """One full PPO iteration: :func:`rollout`, then :func:`learn`.
-    Returns (TrainState, metrics)."""
+    Returns (TrainState, metrics); ``shard`` as in :func:`learn`."""
     env_state, stats, traj, bootstrap_value = rollout(
-        env_cfg, ppo, ts.policy, ts.env_state, ts.stats, ts.generator)
+        env_cfg, ppo, ts.policy, ts.env_state, ts.stats, ts.generator, shard)
     ts = dataclasses.replace(ts, env_state=env_state, stats=stats)
-    return learn(env_cfg, ppo, ts, traj, bootstrap_value, coeffs)
+    return learn(env_cfg, ppo, ts, traj, bootstrap_value, coeffs,
+                 shard=shard)

@@ -3,6 +3,8 @@
 usage: python -m q1physrl_torch.algo.train <run.yml> [--seed N]
            [--device cuda|cpu]
        python -m q1physrl_torch.algo.train --smoke [--device cuda|cpu]
+       torchrun --standalone --nproc_per_node=W -m q1physrl_torch.algo.train
+           <run.yml> [--backend nccl|gloo] [--device DEVICE]
 
 Reads a run config (the native YAML or the RLLib ``params.yml`` format,
 ``algo/config.py:load_run_config``), tracks the reference's stats,
@@ -14,6 +16,15 @@ three iterations of a tiny geometry into a temporary directory.
 Each iteration is ``ppo.rollout`` (one launch of the auto-reset env kernel
 per frame on the card) then ``ppo.learn``; the host loop times the two,
 prints and checkpoints.
+
+Under torchrun each of the W ranks trains on num_envs / W envs; the mode
+follows ``use_shard_map`` as in the JAX package: false keeps the
+semantics of one process (``ppo`` with an env shard), true runs the
+explicit data-parallel iteration (``parallel/spmd.py``).  A rank's device
+is ``cuda:LOCAL_RANK`` unless ``--device`` names one (``--device cuda:0
+--backend gloo`` puts several ranks on one card); the backend is ``nccl``
+on cards and ``gloo`` on the CPU unless ``--backend`` says otherwise.
+Rank 0 alone prints, writes metrics and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import tempfile
 import time
 from typing import Optional
@@ -28,6 +40,8 @@ from typing import Optional
 import torch
 
 from ..analyse import resolve_device
+from ..parallel import distributed, spmd
+from ..parallel.mesh import env_shard, init_sharded_train_state
 from ..utils.metrics_io import MetricsWriter
 from . import checkpoint as ckpt
 from .config import PPOConfig, RunConfig, load_run_config
@@ -53,7 +67,12 @@ class _Best:
 
 class Trainer:
     """Host-side training loop around :func:`ppo.rollout` and
-    :func:`ppo.learn`."""
+    :func:`ppo.learn`.
+
+    In a process group every rank builds its own Trainer, on its own
+    ``device``; ``mode`` is ``"global"`` (ppo with an env shard) or, with
+    ``run.use_shard_map``, ``"spmd"``; in one process it is ``"single"``.
+    """
 
     def __init__(self, run: RunConfig, device="cuda"):
         if run.plot_frequency:
@@ -61,9 +80,6 @@ class Trainer:
                 "plot_frequency > 0 needs eval_sim (the wish-angle plot), "
                 "which q1physrl_torch has not ported yet; set "
                 "plot_frequency: 0")
-        if run.use_shard_map:
-            raise NotImplementedError(
-                "use_shard_map: multi-device training is not ported yet")
         self.device = resolve_device(device)
         # Float32 products in full float32 on the card (TF32 off).
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -72,19 +88,34 @@ class Trainer:
         self.env_cfg = (dataclasses.replace(run.env, num_envs=None)
                         if run.env.num_envs is not None else run.env)
         self.ppo = run.ppo
-        self.ts = init_train_state(run.seed, self.env_cfg, self.ppo,
-                                   self.device)
+        self.shard = None
+        if not distributed.is_initialized():
+            self.mode = "single"
+            self.ts = init_train_state(run.seed, self.env_cfg, self.ppo,
+                                       self.device)
+        else:
+            self.mode = "spmd" if run.use_shard_map else "global"
+            if self.mode == "spmd":
+                spmd.local_config(self.ppo, distributed.world_size())
+            self.shard = env_shard(self.ppo.num_envs)
+            self.ts = init_sharded_train_state(run.seed, self.env_cfg,
+                                               self.ppo, self.shard,
+                                               self.device)
+        self.is_main = distributed.rank() == 0
         restore = run.checkpoint_fname
         if restore is None and run.auto_resume:
             restore = ckpt.latest_checkpoint(run.checkpoint_dir)
-            if restore:
+            if restore and self.is_main:
                 print(f"Auto-resuming from {restore}", flush=True)
         if restore:
             self.ts = ckpt.restore_checkpoint(restore, self.ts)
         self.best: dict[str, _Best] = {}
-        self.metrics_writer = MetricsWriter(
-            run.log_dir or f"{run.checkpoint_dir}/logs",
-            use_wandb=run.use_wandb, wandb_config=dataclasses.asdict(run))
+        self.metrics_writer = None
+        if self.is_main:
+            self.metrics_writer = MetricsWriter(
+                run.log_dir or f"{run.checkpoint_dir}/logs",
+                use_wandb=run.use_wandb,
+                wandb_config=dataclasses.asdict(run))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -92,20 +123,34 @@ class Trainer:
 
     def step(self) -> dict:
         """One iteration; returns its metrics as floats, with the seconds
-        of the rollout and the learning halves."""
+        of the rollout and the learning halves, and the collectives' calls
+        and seconds (``parallel.distributed.counters``; the seconds only
+        while ``time_collectives`` is on)."""
+        calls = distributed.counters["calls"]
+        seconds = distributed.counters["seconds"]
         t0 = time.perf_counter()
+        generator = (spmd.rank_generator(self.ts.generator)
+                     if self.mode == "spmd" else self.ts.generator)
         env_state, stats, traj, bootstrap_value = rollout(
             self.env_cfg, self.ppo, self.ts.policy, self.ts.env_state,
-            self.ts.stats, self.ts.generator)
+            self.ts.stats, generator,
+            self.shard if self.mode == "global" else None)
         self._sync()
         t1 = time.perf_counter()
         ts = dataclasses.replace(self.ts, env_state=env_state, stats=stats)
-        self.ts, metrics = learn(self.env_cfg, self.ppo, ts, traj,
-                                 bootstrap_value)
+        if self.mode == "spmd":
+            self.ts, metrics = spmd.learn(self.env_cfg, self.ppo, ts, traj,
+                                          bootstrap_value, generator)
+        else:
+            self.ts, metrics = learn(self.env_cfg, self.ppo, ts, traj,
+                                     bootstrap_value, shard=self.shard)
         metrics = {k: float(v) for k, v in metrics.items()}
         t2 = time.perf_counter()
         return {**metrics, "rollout_seconds": t1 - t0,
-                "learn_seconds": t2 - t1}
+                "learn_seconds": t2 - t1,
+                "collectives": distributed.counters["calls"] - calls,
+                "collective_seconds":
+                    distributed.counters["seconds"] - seconds}
 
     def maybe_checkpoint(self, i: int, metrics: dict) -> Optional[str]:
         """Reference checkpoint policy (train.py:119-133): save when any
@@ -138,26 +183,31 @@ class Trainer:
             metrics = self.step()
             dt = time.time() - t0
             steps = self.ppo.batch_size
-            print(f"Iteration: {i} "
-                  f"steps/s: {steps / dt:,.0f} "
-                  f"total_steps: {int(self.ts.env_steps):,} Current:",
-                  {k: round(metrics.get(k, float('nan')), 2)
-                   for k in STATS_TO_PRINT}, flush=True)
-            self.metrics_writer.write(
-                int(self.ts.env_steps),
-                {**metrics, "iteration": i, "steps_per_sec": steps / dt})
+            self._print(f"Iteration: {i} "
+                        f"steps/s: {steps / dt:,.0f} "
+                        f"total_steps: {int(self.ts.env_steps):,} Current:",
+                        {k: round(metrics.get(k, float('nan')), 2)
+                         for k in STATS_TO_PRINT})
+            if self.metrics_writer is not None:
+                self.metrics_writer.write(
+                    int(self.ts.env_steps),
+                    {**metrics, "iteration": i, "steps_per_sec": steps / dt})
             fname = self.maybe_checkpoint(i, metrics)
             saved_final = fname is not None
             if fname:
-                print("Best:", {k: (round(b.val, 2), b.fname)
-                                for k, b in self.best.items()}, flush=True)
+                self._print("Best:", {k: (round(b.val, 2), b.fname)
+                                      for k, b in self.best.items()})
             i += 1
         if not saved_final:
             # Final save, so that auto-resume restarts exactly here.
             ckpt.save_checkpoint(self.run.checkpoint_dir, self.ts, i)
-        print(f"Finished {i} iterations in {time.time() - t_start:.0f}s",
-              flush=True)
+        self._print(f"Finished {i} iterations in "
+                    f"{time.time() - t_start:.0f}s")
         return self.best
+
+    def _print(self, *args):
+        if self.is_main:
+            print(*args, flush=True)
 
 
 def smoke_run(seed: int = 0) -> RunConfig:
@@ -179,7 +229,12 @@ def main(argv=None):
     parser.add_argument("--seed", type=int,
                         help="also moves the checkpoint dir to "
                              "<checkpoint_dir>_seed<N>")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device",
+                        help="default: cuda, or cuda:LOCAL_RANK under "
+                             "torchrun")
+    parser.add_argument("--backend", choices=("nccl", "gloo"),
+                        help="process-group backend under torchrun (default: "
+                             "nccl on cards, gloo on the CPU)")
     args = parser.parse_args(argv)
     if args.smoke:
         run = smoke_run(args.seed or 0)
@@ -191,8 +246,18 @@ def main(argv=None):
             run = dataclasses.replace(
                 run, seed=args.seed,
                 checkpoint_dir=f"{run.checkpoint_dir}_seed{args.seed}")
-    trainer = Trainer(run, device=args.device)
-    return trainer.train()
+    under_torchrun = "WORLD_SIZE" in os.environ
+    device = torch.device(args.device or (
+        f"cuda:{distributed.local_rank()}" if under_torchrun else "cuda"))
+    if device.type == "cuda" and device.index is not None:
+        resolve_device(device)
+        torch.cuda.set_device(device)
+    distributed.initialize(backend=args.backend or (
+        "nccl" if device.type == "cuda" else "gloo"))
+    try:
+        return Trainer(run, device=device).train()
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -41,6 +41,8 @@ from .algo.ppo import init_train_state, train_iter
 from .analyse import resolve_device
 from .env import core as env_core
 from .ops.env_rollout import rollout_random
+from .ops.sharded_rollout import sharded_rollout_random
+from .parallel.mesh import shard_env_axis
 
 __all__ = ("bench_env_kernel", "bench_env_eager", "bench_train", "main")
 
@@ -70,15 +72,24 @@ def _median_rate(run, work: int, reps: int, label: str) -> float:
 
 
 def bench_env_kernel(n: int = 1 << 20, t: int = 720, reps: int = 5,
-                     device="cuda") -> float:
-    """Env steps/s of the ``rollout_random`` kernel, from a fresh reset."""
+                     device="cuda", shard=None) -> float:
+    """Env steps/s of the ``rollout_random`` kernel, from a fresh reset.
+
+    ``shard``: a ``parallel.mesh.EnvShard`` of the n envs; each rank of the
+    process group runs ``sharded_rollout_random`` on its share, whose done
+    count all-reduce ends each call on every rank together, and the rate
+    counts the env steps of all ranks."""
     cfg = dataclasses.replace(load_run_config(
         str(ROOT / "configs" / "run_tpu_e3.yml")).env, num_envs=None)
     device = resolve_device(device)
     state = env_core.reset(cfg, torch.Generator(device).manual_seed(0), n,
                            device=device)
-    return _median_rate(lambda: rollout_random(cfg, state, t, seed=7),
-                        n * t, reps, f"env kernel n={n} t={t}")
+    if shard is None:
+        run = lambda: rollout_random(cfg, state, t, seed=7)
+    else:
+        state = shard_env_axis(state, shard)
+        run = lambda: sharded_rollout_random(cfg, state, t, seed=7)
+    return _median_rate(run, n * t, reps, f"env kernel n={n} t={t}")
 
 
 def bench_env_eager(n: int = 1 << 19, t: int = 256, reps: int = 3,

@@ -15,7 +15,10 @@ Closed forms:
 - GSG KL       = KL of the unsquashed Gaussians; the squash is a fixed
   bijection, so KL is invariant.
 
-Sampling draws from an explicit ``torch.Generator``.
+Sampling draws from an explicit ``torch.Generator``; given an env shard
+(``parallel.mesh.EnvShard``), it draws for the whole batch along the leading
+env axis and keeps the shard's rows, so that each rank of a process group
+draws what one process would for those envs.
 """
 
 from __future__ import annotations
@@ -36,6 +39,15 @@ MAX_LOG_NN_OUTPUT = 2.0
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
+def _draw(fn, like, generator, shard=None):
+    """``fn`` (``torch.rand``/``torch.randn``) of ``like``'s shape, dtype
+    and device; with a shard, drawn for the global batch on axis 0."""
+    kwargs = dict(generator=generator, dtype=like.dtype, device=like.device)
+    if shard is None:
+        return fn(like.shape, **kwargs)
+    return shard.draw(fn, like.shape, 0, **kwargs)
+
+
 def _normal_logpdf(x, mean, std):
     return -torch.log(std) - _HALF_LOG_2PI - 0.5 * torch.square((x - mean) / std)
 
@@ -46,10 +58,9 @@ class Categorical:
 
     logits: torch.Tensor
 
-    def sample(self, generator: torch.Generator):
+    def sample(self, generator: torch.Generator, shard=None):
         """Gumbel-max draw: argmax(logits - log(-log(u)))."""
-        u = torch.rand(self.logits.shape, generator=generator,
-                       dtype=self.logits.dtype, device=self.logits.device)
+        u = _draw(torch.rand, self.logits, generator, shard)
         return torch.argmax(self.logits - torch.log(-torch.log(u)), dim=-1)
 
     def mode(self):
@@ -111,10 +122,9 @@ class GaussianSquashedGaussian:
         return (_normal_logpdf(unsquashed, 0.0, scale)
                 + math.log(self.high - self.low))
 
-    def sample(self, generator: torch.Generator):
+    def sample(self, generator: torch.Generator, shard=None):
         mean = self.mean
-        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                          device=mean.device)
+        eps = _draw(torch.randn, mean, generator, shard)
         return self._squash(mean + self.std * eps)
 
     def mode(self):

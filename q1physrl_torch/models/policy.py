@@ -61,11 +61,13 @@ class ActionDist:
                                device=logits.device)
         return draw(self.yaw).to(logits.dtype)
 
-    def sample(self, generator: torch.Generator):
+    def sample(self, generator: torch.Generator, shard=None):
+        """``shard``: an env shard whose rows to keep of draws made for the
+        whole batch (see ``distributions``)."""
         key_actions = torch.stack(
-            [d.sample(generator) for d in self.keys]).to(torch.int32)
+            [d.sample(generator, shard) for d in self.keys]).to(torch.int32)
         return key_actions, self._yaw_action(
-            key_actions, lambda d: d.sample(generator))
+            key_actions, lambda d: d.sample(generator, shard))
 
     def mode(self):
         key_actions = torch.stack([d.mode() for d in self.keys]).to(torch.int32)

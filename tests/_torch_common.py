@@ -3,6 +3,13 @@ package: the same numpy inputs go through both, and results are compared
 as numpy arrays.  The probe configs and the seeded action stream are the
 ones ``chip_smoke.py`` holds the CUDA kernel to on the card."""
 
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -59,3 +66,41 @@ def assert_env_state_close(got: tcore.EnvState, want, vel_rtol=1e-5,
     np.testing.assert_allclose(got.last_key_press_time.numpy(),
                                np.asarray(want.last_key_press_time),
                                rtol=1e-6, atol=1e-6)
+
+
+WORKER = Path(__file__).resolve().with_name("_torch_parallel_worker.py")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(task, directory: Path, args, inputs=None, world=2,
+              backend="gloo", device="cpu", timeout=180):
+    """``task`` of ``tests/_torch_parallel_worker.py`` in ``world``
+    processes joined by ``backend`` on ``device``; returns what each rank
+    saved.  Each child has a process group timeout and this wall-clock
+    limit."""
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "args.json").write_text(json.dumps(args))
+    if inputs is not None:
+        torch.save(inputs, directory / "inputs.pt")
+    init = f"tcp://localhost:{_free_port()}"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(WORKER), task, init, str(r), str(world),
+         str(directory), backend, device], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, f"rank failed:\n{out}"
+    return [torch.load(directory / f"rank{r}.pt", map_location="cpu")
+            for r in range(world)]

@@ -1,7 +1,9 @@
 """The CUDA rollout kernels on the card: each held against its plain
 version, their argument checks and launch counts, the kernels' Philox
 against its plain version and curand's, scoring on the card against the
-CPU, and a training iteration on the card.
+CPU, a training iteration on the card; and for data-parallel training, the
+generator's bits in two processes and the sharded rollouts of two gloo
+ranks on one card.
 
 These tests need an NVIDIA card and nvcc; without them they skip (the
 kernels have no CPU mode).  Run them on the card with
@@ -21,6 +23,7 @@ from q1physrl_torch.algo.config import PPOConfig, load_run_config
 from q1physrl_torch.models import Policy, import_policy_params
 from q1physrl_torch.ops import env_rollout
 
+from _torch_common import run_ranks
 from chip_smoke import probe_configs, rollout_inputs
 
 pytestmark = pytest.mark.cuda
@@ -181,3 +184,56 @@ def test_deterministic_score_on_card_matches_cpu(cuda):
             policy, RUN4, num_episodes=2, deterministic=True,
             device=device)["mean"]
     assert abs(scores["cuda"] - scores["cpu"]) <= 10.0, scores
+
+
+def test_two_processes_draw_the_same_bits_on_one_card(cuda, tmp_path):
+    """Data-parallel training draws every random tensor for the whole batch
+    on every rank: two processes seeding the card's generator alike must
+    draw the same bits."""
+    a, b = run_ranks("draws", tmp_path, {"seed": 1234, "n": 100003},
+                     device="cuda:0")
+    for k in ("rand", "randn", "perm"):
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_two_gloo_ranks_sharded_rollouts_equal_single_launch(cuda, tmp_path):
+    """Two gloo ranks on one card, each launching the kernels on its half of
+    the envs: the halves joined equal one launch on the whole batch, and
+    sharded_rollout_random equals the plain version with the rank's seed,
+    to the bit."""
+    from q1physrl_torch.ops import sharded_rollout
+
+    cfg = dataclasses.replace(RUN4, zero_start_prob=0.3)
+    state, ka, ya = _case(cfg, 512, 100, 5, cuda)
+    ru = torch.rand((100, 5, 512), device=cuda)
+    p = state.player
+    inputs = {k: (getattr(p, k) if hasattr(p, k) else getattr(state, k)).cpu()
+              for k in ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
+                        "jump_released", "yaw", "time_remaining",
+                        "zero_start", "last_keys", "last_key_press_time")}
+    inputs.update(ka=ka.cpu(), ya=ya.cpu(), ru=ru.cpu())
+    ranks = run_ranks("rollouts", tmp_path,
+                      {"cfg": dataclasses.asdict(cfg),
+                       "reset_cfg": dataclasses.asdict(cfg), "seed": 11,
+                       "t_random": 100}, inputs, device="cuda:0")
+    wants = {"actions": env_rollout.rollout_actions(cfg, state, ka, ya),
+             "autoreset": env_rollout.rollout_actions_autoreset(
+                 cfg, state, ka, ya, ru)}
+    for key, (want_state, want_r, want_d) in wants.items():
+        assert bool(want_d.any()), key
+        assert torch.equal(torch.cat([r[key][1] for r in ranks], -1),
+                           want_r.cpu()), key
+        assert torch.equal(torch.cat([r[key][2] for r in ranks], -1),
+                           want_d.cpu()), key
+        for f, want in ((f, getattr(want_state.player, f)
+                         if hasattr(want_state.player, f)
+                         else getattr(want_state, f))
+                        for f in inputs if f not in ("ka", "ya", "ru")):
+            got = torch.cat([r[key][0][f] for r in ranks], -1)
+            assert torch.equal(got, want.cpu()), (key, f)
+    total = sum(int(r["random_plain"][2]) for r in ranks)
+    for r in ranks:
+        assert torch.equal(r["random"][1], r["random_plain"][1])
+        assert int(r["random"][2]) == total > 0
+        assert all(v == 1 for v in r["launches"].values()), r["launches"]
+    assert sharded_rollout.SEED_STRIDE == 100003

@@ -9,15 +9,20 @@ Phases, each printing one JSON line:
 2. build     — compiles the rollout library (kernels rollout_actions,
                rollout_actions_autoreset and rollout_random) and curand's
                Philox yardstick from the checkout, one nvcc each, together.
-3. kernels   — holds each kernel against its plain PyTorch version on the
-               card, for the run4 config and five probe configs (N=4,096,
-               T=64, episodes ending inside the window), then compares and
-               times kernel and plain version at the shapes the main paths
-               launch beside each kernel's bound: rollout_actions at the
-               scoring shape (N=512, T=1) and N=65,536, T=128;
-               rollout_actions_autoreset at the training shape (N=8,192,
-               T=1); rollout_random at N=65,536, T=128 and the bench shape
-               (N=2^20, T=720).  rollout_random's Philox is held against
+3. kernels   — prints how each kernel launches at its main path's shape
+               (threads per block, blocks resident per SM, waves), then
+               holds each kernel against its plain PyTorch version on the
+               card, to the bit, for the run4 config and five probe
+               configs (N=4,096, T=64, episodes ending inside the window),
+               then compares and times kernel and plain version at the
+               shapes the main paths launch beside each kernel's bound:
+               rollout_actions at the scoring shape (N=512, T=1) and
+               N=65,536, T=128; rollout_actions_autoreset at the training
+               shape (N=8,192, T=1); rollout_random at N=65,536, T=128 and
+               the bench shape (N=2^20, T=720), and also at an odd T
+               (N=4,096, T=67), and each kernel on run4 from a state whose
+               key latches hold any int32 (ANY_LATCHES).  rollout_random's
+               Philox is held against
                its plain version and curand's, and the zero-start share of
                its resets against zero_start_prob.
 4. scoring   — runs the evaluate CLI on the shipped ``tpu_pb`` checkpoint under
@@ -90,15 +95,18 @@ F32_OPS_PER_S = 67e12
 OPS_PER_ENV_STEP = 47
 # rollout_random's integer work (csrc/philox.cuh): one Philox4x32-10 call
 # is 98 operations (10 rounds of 2 high and 2 low products and 4 xors, 9
-# key bumps of 2 adds).  Each env-step makes one call and takes 4 key bits
-# (shift, and: 8), the yaw uniform (shift, and, convert, scale: 4) and the
-# yaw action (3 float operations); each reset makes a second call and
-# converts 5 uniforms (4 each).  The card's float32 rate stands for its
-# integer rate, which is no higher on Hopper: the bound stays a lower
-# bound.
+# key bumps of 2 adds).  One call draws the actions of FRAMES_PER_DRAW (3)
+# frames (csrc/env_rollout.cu, the draw layout); each env-step then shifts
+# the key word and takes its 4 key bits (shift, and: 9), the yaw uniform
+# (shift, and, convert, scale: 4) and the yaw action (3 float operations).
+# Each reset makes one call of its own and converts 4 uniforms from the top
+# bits (4 each) and 1 from the low bytes (3 ands, 2 shifts, 2 ors, convert,
+# scale: 9).  The card's float32 rate stands for its integer rate, which is
+# half of it on Hopper (64 against 128 results per clock per SM): the bound
+# stays a lower bound.
 PHILOX_OPS = 98
-OPS_PER_RANDOM_DRAW = PHILOX_OPS + 8 + 4 + 3
-OPS_PER_RANDOM_RESET = PHILOX_OPS + 5 * 4
+OPS_PER_RANDOM_FRAME = 9 + 4 + 3
+OPS_PER_RANDOM_RESET = PHILOX_OPS + 4 * 4 + 9
 
 # Scores of tpu_pb under run4 (data/checkpoints/tpu_pb/eval.json) and the
 # allowed distance: 10 is over 15 standard errors of a 512-episode mean
@@ -116,6 +124,13 @@ YAW_RTOL = 1e-6
 # Shapes: (N, T) of the probe-config comparisons, and {shape: (N, T, timed
 # reps of the kernel, of its plain version)} of each kernel's timed shapes.
 PROBE_SHAPE = (4096, 64)
+# rollout_random at a T that ends inside a Philox call's frames (odd, not a
+# multiple of its FRAMES_PER_DRAW).
+ODD_T_SHAPE = (4096, 67)
+# Key latches a hand-made state may hold: a step leaves 0 or 1, and the
+# kernels take an env with another latch through its first frame by the
+# plain version's operations (csrc/env_rollout.cu, latches_are_bits).
+ANY_LATCHES = (-5, -1, 0, 1, 2, 3, 7)
 ACTIONS_SHAPES = {"scoring": (512, 1, 1000, 100),
                   "throughput": (65536, 128, 20, 2)}
 AUTORESET_SHAPES = {"training": (8192, 1, 1000, 100)}
@@ -124,8 +139,9 @@ RANDOM_SHAPES = {"throughput": (65536, 128, 20, 2),
 ZERO_START_RESETS = 1 << 20
 BENCH_ENV = dict(n=1 << 20, t=720, reps=3)
 # One training iteration: at run_tpu_e3's 18,432 Adam steps of 128 rows an
-# iteration took 187-197 s on an H100 (PERF.md, Findings), over the 150 s at
-# which the smoke run keeps to one; the geometry and widths stay full.
+# iteration took 115-197 s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+# Findings), over the 150 s at which the smoke run keeps to one; the
+# geometry and widths stay full.
 TRAIN_ITERATIONS = 1
 
 # The data-parallel phases: params_tpu.yml, two gloo ranks on card 0.
@@ -197,6 +213,17 @@ def rollout_inputs(cfg, n, steps, seed, device, near_end=0.25):
             torch.tensor(ya, device=device))
 
 
+def any_latches(state, seed):
+    """``state`` with its key latches drawn from ANY_LATCHES."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    last_keys = torch.tensor(rng.choice(ANY_LATCHES,
+                                        tuple(state.last_keys.shape)),
+                             dtype=torch.int32, device=state.last_keys.device)
+    return dataclasses.replace(state, last_keys=last_keys)
+
+
 def _float_leaves(state):
     p = state.player
     return {"z_pos": p.z_pos, "vel_x": p.vel_x, "vel_y": p.vel_y,
@@ -230,28 +257,40 @@ def _compare_state(name, s, s0):
     return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
+def _bitwise(name, err):
+    """The kernels run their plain versions' float32 operations in the same
+    order: past the tolerances above, any difference is a fault."""
+    if err != 0.0:
+        raise AssertionError(f"{name}: not bitwise equal to the plain "
+                             f"version (largest difference {err})")
+    return err
+
+
 def _compare(name, got, want):
     """Assert the kernel's (state, rewards, dones) equals the plain
-    version's; return the largest absolute difference of a float output."""
+    version's, to the bit; return the largest absolute difference of a
+    float output (0.0)."""
     (s, r, d), (s0, r0, d0) = got, want
     np_ = lambda x: x.cpu().numpy()
     np.testing.assert_allclose(np_(r), np_(r0), rtol=REWARD_RTOL,
                                atol=REWARD_ATOL, err_msg=f"{name}: rewards")
     np.testing.assert_array_equal(np_(d), np_(d0), err_msg=f"{name}: dones")
-    return max(float((r - r0).abs().max()), _compare_state(name, s, s0))
+    return _bitwise(name, max(float((r - r0).abs().max()),
+                              _compare_state(name, s, s0)))
 
 
 def _compare_random(name, got, want):
     """rollout_random's (state, reward sums, done count) against its plain
     version's: the state as in :func:`_compare`, the sums at the reward
-    tolerances, the count exactly."""
+    tolerances, the count exactly, then all of it to the bit."""
     (s, r, d), (s0, r0, d0) = got, want
     np.testing.assert_allclose(r.cpu().numpy(), r0.cpu().numpy(),
                                rtol=REWARD_RTOL, atol=REWARD_ATOL,
                                err_msg=f"{name}: reward sums")
     if int(d) != int(d0):
         raise AssertionError(f"{name}: done count {int(d)} != {int(d0)}")
-    return max(float((r - r0).abs().max()), _compare_state(name, s, s0))
+    return _bitwise(name, max(float((r - r0).abs().max()),
+                              _compare_state(name, s, s0)))
 
 
 def _time_ms(fn, reps, warmup=3):
@@ -329,11 +368,14 @@ def _bound_autoreset(state, ka, ya, dones):
 def _bound_random(state, t, done_count):
     """As :func:`_bound` for rollout_random: the state read and written,
     the per-env reward sum and done count written; its float operations
-    and Philox's integer operations, with this run's resets."""
-    from q1physrl_torch.ops.env_rollout import _all_leaves
+    and Philox's integer operations: one call per FRAMES_PER_DRAW frames of
+    each env, and one per reset of this run."""
+    from q1physrl_torch.ops.env_rollout import FRAMES_PER_DRAW, _all_leaves
 
     n = state.num_envs
-    ops = ((OPS_PER_ENV_STEP + OPS_PER_RANDOM_DRAW) * n * t
+    calls = -(-t // FRAMES_PER_DRAW)
+    ops = ((OPS_PER_ENV_STEP + OPS_PER_RANDOM_FRAME) * n * t
+           + PHILOX_OPS * n * calls
            + OPS_PER_RANDOM_RESET * int(done_count))
     return _least_time(2 * _nbytes(_all_leaves(state)) + n * (4 + 4), ops)
 
@@ -365,6 +407,13 @@ def _phase_rollout_actions(run, device):
         max_err = max(max_err, err)
         _emit({"phase": "kernel", "kernel": "rollout_actions",
                "config": name, "n": n, "t": t, "max_abs_err": err})
+    state, ka, ya = rollout_inputs(run.env, n, t, 40, device)
+    state = any_latches(state, 40)
+    err = _compare("run4 any latches", rollout_actions(run.env, state, ka, ya),
+                   rollout_actions_plain(run.env, state, ka, ya))
+    max_err = max(max_err, err)
+    _emit({"phase": "kernel", "kernel": "rollout_actions",
+           "config": "run4 any latches", "n": n, "t": t, "max_abs_err": err})
 
     # The timed shapes are compared too: the scoring shape is the one the
     # main path launches, and its error is the one the kernels line reports.
@@ -401,6 +450,15 @@ def _phase_autoreset(run, device):
         _emit({"phase": "kernel", "kernel": "rollout_actions_autoreset",
                "config": name, "n": n, "t": t,
                "dones": int(want[2].sum()), "max_abs_err": err})
+    state, ka, ya = rollout_inputs(run.env, n, t, 41, device)
+    state = any_latches(state, 41)
+    ru = _reset_uniforms(n, t, 41, device)
+    err = _compare("run4 any latches",
+                   rollout_actions_autoreset(run.env, state, ka, ya, ru),
+                   rollout_actions_autoreset_plain(run.env, state, ka, ya, ru))
+    max_err = max(max_err, err)
+    _emit({"phase": "kernel", "kernel": "rollout_actions_autoreset",
+           "config": "run4 any latches", "n": n, "t": t, "max_abs_err": err})
 
     # The training shape: one frame of 8,192 envs, as the PPO rollout
     # launches it.
@@ -456,6 +514,26 @@ def _phase_random(run, device):
         want = rollout_random_plain(cfg, state, t, seed)
         err = _compare_random(name, rollout_random(cfg, state, t, seed),
                               want)
+        max_err = max(max_err, err)
+        _emit({"phase": "kernel", "kernel": "rollout_random", "config": name,
+               "n": n, "t": t, "dones": int(want[2]), "max_abs_err": err})
+    state, _, _ = rollout_inputs(run.env, n, 1, 42, device)
+    state = any_latches(state, 42)
+    err = _compare_random("run4 any latches",
+                          rollout_random(run.env, state, t, 42),
+                          rollout_random_plain(run.env, state, t, 42))
+    max_err = max(max_err, err)
+    _emit({"phase": "kernel", "kernel": "rollout_random",
+           "config": "run4 any latches", "n": n, "t": t, "max_abs_err": err})
+
+    n, t = ODD_T_SHAPE
+    for seed, name in enumerate(("run4", "hover=True")):
+        cfg = dataclasses.replace(probe_configs(run.env)[name],
+                                  zero_start_prob=0.3)
+        state, _, _ = rollout_inputs(cfg, n, 1, 50 + seed, device)
+        want = rollout_random_plain(cfg, state, t, 50 + seed)
+        err = _compare_random(f"{name} odd T", rollout_random(
+            cfg, state, t, 50 + seed), want)
         max_err = max(max_err, err)
         _emit({"phase": "kernel", "kernel": "rollout_random", "config": name,
                "n": n, "t": t, "dones": int(want[2]), "max_abs_err": err})
@@ -1079,8 +1157,16 @@ def main(device=None) -> int:
            "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
            "seconds": build_s})
 
-    # 3. each kernel against its plain version, then timing
+    # 3. each kernel against its plain version, then timing; first how each
+    # launches at its main path's shape: blocks resident per SM and waves
     run = load_run_config(str(RUN_YAML))
+    shapes = {"rollout_actions": ACTIONS_SHAPES["scoring"][0],
+              "rollout_actions_autoreset": AUTORESET_SHAPES["training"][0],
+              "rollout_random": RANDOM_SHAPES["bench"][0]}
+    _emit({"phase": "launch_shapes", "shapes": {
+        name: {"n": n, **env_rollout.launch_shape(name, n,
+                                                  run.env.num_keys)}
+        for name, n in shapes.items()}})
     actions_t, actions_err = _phase_rollout_actions(run, device)
     autoreset_t, autoreset_err = _phase_autoreset(run, device)
     random_t, random_err = _phase_random(run, device)

@@ -27,30 +27,51 @@
 // done flag; the arithmetic (47 float operations per env-step for K=4 in
 // the air, 57 on the ground, counting each sinf, cosf, sqrtf and divide as
 // one) is far below the card's float32 rate.  rollout_random moves only the
-// state, so its arithmetic bounds it: one Philox call per env-step (98
-// integer operations) plus a second where an episode ends, and the step's
-// float operations.
+// state, so the rate at which the SMs issue instructions bounds it: on
+// run4's common path (in the air, no reset) an env-step issues about 234
+// warp instructions (scripts/torch_sass_mix.py; PERF.md): 14 are a third
+// of the 42-instruction block of one Philox call, 34 three IEEE divides,
+// and the rest the step's physics, one shared range reduction and the
+// sine and cosine polynomials.
 //
 // What the design does about it: one thread per env, state in registers
 // across the T loop, loaded and stored once per launch; per-step inputs and
 // outputs are indexed t*N+i (keys (t*K+k)*N+i, reset uniforms (t*5+j)*N+i),
 // so the threads of a warp touch neighbouring addresses.  Reset uniforms
-// are read, and the second Philox call made, only where an episode ended.
+// are read, and the reset's Philox call made, only where an episode ended.
 // The config arrives as launch arguments, so one binary serves every
-// Config, and branches on its flags are uniform across a warp.
+// Config, and branches on its flags are uniform across a warp; only the
+// number of keys K (3 or 4) is a template argument, so the per-key loops
+// carry no branch.  To issue fewer instructions per env-step:
 //
+// - rollout_random draws the actions of kFramesPerDraw = 3 frames from one
+//   Philox call (see the draw layout above rollout_random_kernel), and an
+//   episode's five reset uniforms from one more;
+// - the yaw angle's sine and cosine share one range reduction (sincosf,
+//   bitwise equal to sinf and cosf on every float32:
+//   scripts/torch_sincos_check.py);
+// - smove and fmove come from a table of the 15 (strafe, forward) pairs the
+//   keys can give, built once per block in shared memory with the plain
+//   version's operations, instead of two int-to-float conversions, a float
+//   product and a float-to-int-to-float truncation per move each env-step
+//   (the table serves key latches of 0 and 1, which every step leaves; an
+//   env that starts with another latch takes its first frame through those
+//   conversions, outside the T loop);
+// - blocks of 64 threads spread the last wave of a launch over the SMs.
+
 // Numerics: float32 only (the float64 parity mode is the plain versions'
 // job).  Build with -fmad=false: the plain versions and the JAX reference
 // round every product before the following add, and a fused multiply-add
 // here changes z_pos by an ulp, which can flip the z_pos < FLOOR_HEIGHT
 // ground test and with it a jump.  Float literals carry the f suffix so no
-// expression is promoted to double; sinf/cosf/sqrtf are the IEEE-accurate
-// versions (no --use_fast_math).  Scalars that the plain version folds in
+// expression is promoted to double; sincosf/sqrtf and the divides are the
+// IEEE-accurate versions (no --use_fast_math).  Scalars that the plain version folds in
 // double before rounding once to float32 (1 - time_limit, 2 pi, ...)
 // arrive from Python already rounded.
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
@@ -58,7 +79,12 @@
 namespace {
 
 constexpr int kMaxKeys = 4;
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;
+// rollout_random: frames whose actions one Philox call draws.
+constexpr int kFramesPerDraw = 3;
+// The move table: strafe = s/2 for s in -2..2, forward = f/2 for f in 0..2.
+constexpr int kMoveTable = 5 * 3;
+static_assert(kThreads >= kMoveTable, "one thread fills each table entry");
 
 // Config flags, packed by the Python wrapper.
 constexpr int kAllowYaw = 1;
@@ -158,7 +184,8 @@ struct Env {
   float last_press[kMaxKeys];
 };
 
-__device__ __forceinline__ Env load_env(const Leaves& s, int i, int n, int k) {
+template <int K>
+__device__ __forceinline__ Env load_env(const Leaves& s, int i, int n) {
   Env e;
   e.z = s.z_pos[i];
   e.vx = s.vel_x[i];
@@ -171,14 +198,29 @@ __device__ __forceinline__ Env load_env(const Leaves& s, int i, int n, int k) {
   e.zero_start = s.zero_start != nullptr && s.zero_start[i] != 0;
 #pragma unroll
   for (int j = 0; j < kMaxKeys; ++j) {
-    e.last_keys[j] = j < k ? s.last_keys[j * n + i] : 0;
-    e.last_press[j] = j < k ? s.last_key_press_time[j * n + i] : 0.0f;
+    e.last_keys[j] = j < K ? s.last_keys[j * n + i] : 0;
+    e.last_press[j] = j < K ? s.last_key_press_time[j * n + i] : 0.0f;
   }
   return e;
 }
 
+// Whether every key latch is 0 or 1.  A step leaves them so (each latch
+// takes the frame's key, an action masked to one bit) and so does a reset;
+// a state made otherwise takes its first frame through env_step's
+// kAnyLatch path.  Each kernel keeps that case out of its main T loop, a
+// copy of the loop entered only from a frame-0 state that holds bits, so
+// the compiler schedules the main loop as if the case did not exist.
+template <int K>
+__device__ __forceinline__ bool latches_are_bits(const Env& e) {
+  bool bits = true;
+#pragma unroll
+  for (int j = 0; j < K; ++j) bits = bits && (unsigned)e.last_keys[j] <= 1u;
+  return bits;
+}
+
+template <int K>
 __device__ __forceinline__ void store_env(const Leaves& s, const Env& e, int i,
-                                          int n, int k) {
+                                          int n) {
   s.z_pos[i] = e.z;
   s.vel_x[i] = e.vx;
   s.vel_y[i] = e.vy;
@@ -189,19 +231,40 @@ __device__ __forceinline__ void store_env(const Leaves& s, const Env& e, int i,
   s.time_remaining[i] = e.time_remaining;
   if (s.zero_start != nullptr) s.zero_start[i] = e.zero_start;
 #pragma unroll
-  for (int j = 0; j < kMaxKeys; ++j) {
-    if (j < k) {
-      s.last_keys[j * n + i] = e.last_keys[j];
-      s.last_key_press_time[j * n + i] = e.last_press[j];
-    }
+  for (int j = 0; j < K; ++j) {
+    s.last_keys[j * n + i] = e.last_keys[j];
+    s.last_key_press_time[j * n + i] = e.last_press[j];
   }
 }
 
+// The (smove, fmove) pair of each key state, at (s + 2) * 3 + f for strafe
+// s/2 and forward f/2: the plain version's truncation through int32 of
+// smove_max * strafe and fmove_max * forward, whose operands are exactly
+// these halves (env/core.py:_decode).  Filled by the block's first threads;
+// every thread of the block waits for it.
+__device__ __forceinline__ void fill_move_table(float2* moves,
+                                                const Params& p) {
+  const int j = threadIdx.x;
+  if (j < kMoveTable) {
+    const float strafe = 0.5f * (float)(j / 3 - 2);
+    const float forward = 0.5f * (float)(j % 3);
+    moves[j] = make_float2((float)(int)(p.smove_max * strafe),
+                           (float)(int)(p.fmove_max * forward));
+  }
+  __syncthreads();
+}
+
 // One frame of env/core.py:step: decode the actions, move the player,
-// return the reward and set `done` from the episode clock.
-__device__ __forceinline__ float env_step(Env& e, const int (&key_in)[kMaxKeys],
-                                          float yaw_action, int k,
+// return the reward and set `done` from the episode clock.  `moves` is the
+// block's move table (fill_move_table), which serves key latches of 0 and
+// 1; with kAnyLatch the step takes smove and fmove from the plain version's
+// operations instead, which hold for a latch of any value.
+template <int K, bool kAnyLatch = false>
+__device__ __forceinline__ float env_step(Env& e, const int (&key_in)[K],
+                                          float yaw_action,
+                                          const float2* moves,
                                           const Params& p, bool& done) {
+  static_assert(K == 3 || K == 4, "the strafe and forward keys must exist");
   const float td = p.time_delta;
   const bool allow_yaw = p.flags & kAllowYaw;
   const bool smooth_keys = p.flags & kSmoothKeys;
@@ -227,43 +290,58 @@ __device__ __forceinline__ float env_step(Env& e, const int (&key_in)[kMaxKeys],
   }
 
   const float current_time = p.time_limit - e.time_remaining;
-  float smoothed[kMaxKeys];
-  int keys[kMaxKeys];
+  int keys[K], last[K];
 #pragma unroll
-  for (int j = 0; j < kMaxKeys; ++j) {
-    keys[j] = 0;
-    smoothed[j] = 0.0f;
-    if (j < k) {
-      const bool elapsed =
-          current_time >= e.last_press[j] + p.key_press_delay;
-      const int key =
-          key_in[j] & ((elapsed || e.last_keys[j] > 0) ? 1 : 0);
-      if (key > 0 && e.last_keys[j] == 0) e.last_press[j] = current_time;
-      smoothed[j] = smooth_keys ? (float)(key + e.last_keys[j]) * 0.5f
-                                : (float)key;
-      keys[j] = key;
-      e.last_keys[j] = key;
-    }
+  for (int j = 0; j < K; ++j) {
+    const bool elapsed =
+        current_time >= e.last_press[j] + p.key_press_delay;
+    const int key = key_in[j] & ((elapsed || e.last_keys[j] > 0) ? 1 : 0);
+    if (key > 0 && e.last_keys[j] == 0) e.last_press[j] = current_time;
+    keys[j] = key;
+    last[j] = e.last_keys[j];
+    e.last_keys[j] = key;
   }
   e.yaw = e.yaw + mouse_x;
-  const float strafe = smoothed[kStrafeRight] - smoothed[kStrafeLeft];
-  const float smove = (float)(int)(p.smove_max * strafe);
-  const float fmove = (float)(int)(p.fmove_max * smoothed[kForward]);
-  bool jump;
-  if (auto_jump) {
-    jump = e.vz <= 16.0f;
-  } else if (allow_jump) {
-    jump = keys[kJump] > 0;
+  float smove, fmove;
+  if (kAnyLatch) {
+    float smoothed[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      // The sum wraps as the plain version's int32 sum does.
+      smoothed[j] =
+          smooth_keys ? (float)(int)((unsigned)keys[j] + (unsigned)last[j]) *
+                            0.5f
+                      : (float)keys[j];
+    }
+    const float strafe = smoothed[kStrafeRight] - smoothed[kStrafeLeft];
+    smove = (float)(int)(p.smove_max * strafe);
+    fmove = (float)(int)(p.fmove_max * smoothed[kForward]);
   } else {
-    jump = false;
+    // Twice the plain version's smoothed strafe and forward, (key + last) *
+    // 0.5 each with smooth_keys, else the key: integers whose halves are
+    // the plain version's values exactly, so the table holds its smove and
+    // fmove.
+    const int strafe2 =
+        smooth_keys ? (keys[kStrafeRight] + last[kStrafeRight]) -
+                          (keys[kStrafeLeft] + last[kStrafeLeft])
+                    : 2 * (keys[kStrafeRight] - keys[kStrafeLeft]);
+    const int forward2 =
+        smooth_keys ? keys[kForward] + last[kForward] : 2 * keys[kForward];
+    const float2 move = moves[(strafe2 + 2) * 3 + forward2];
+    smove = move.x;
+    fmove = move.y;
   }
+  // The jump key exists only where K = 4 (env/config.py:num_keys).
+  const bool jump_key = K > kJump && keys[kJump % K] > 0;
+  const bool jump = auto_jump ? e.vz <= 16.0f : allow_jump && jump_key;
 
   // --- horizontal physics (phys.py:air_move), pitch = roll = 0 ---
   // With pitch = roll = 0, angle_vectors gives exactly
-  // f = (cy, sy) and r = (sy, -cy).
+  // f = (cy, sy) and r = (sy, -cy).  sincosf shares one range reduction
+  // and gives sinf's and cosf's bits.
   const float angle = e.yaw * kDegToRad;
-  const float sy = sinf(angle);
-  const float cy = cosf(angle);
+  float sy, cy;
+  sincosf(angle, &sy, &cy);
   const float wish_x = cy * fmove + sy * smove;
   const float wish_y = sy * fmove - cy * smove;
   const float unclipped = sqrtf(wish_x * wish_x + wish_y * wish_y);
@@ -317,10 +395,10 @@ __device__ __forceinline__ float env_step(Env& e, const int (&key_in)[kMaxKeys],
 // Replace the env with a fresh episode start drawn from five uniforms
 // (env/core.py:reset_from_uniforms, then merge_reset where done).  The
 // quirk of the original holds: time, speed and angle come from (1, x].
+template <int K>
 __device__ __forceinline__ void reset_env(Env& e, float u_zs, float u_yaw,
                                           float u_time, float u_speed,
-                                          float u_angle, int k,
-                                          const Params& p) {
+                                          float u_angle, const Params& p) {
   const bool zero_start = u_zs < p.zero_start_prob;
   float speed = zero_start ? 0.0f : p.speed_hi + p.speed_span * u_speed;
   float move_angle = p.angle_hi + p.angle_span * u_angle;
@@ -328,9 +406,11 @@ __device__ __forceinline__ void reset_env(Env& e, float u_zs, float u_yaw,
     speed = p.hover_speed;
     move_angle = p.hover_angle;
   }
+  float sa, ca;
+  sincosf(move_angle, &sa, &ca);
   e.z = p.initial_z;
-  e.vx = speed * cosf(move_angle);
-  e.vy = speed * sinf(move_angle);
+  e.vx = speed * ca;
+  e.vy = speed * sa;
   e.vz = p.initial_vz;
   e.on_ground = false;
   e.jump_released = true;
@@ -339,37 +419,44 @@ __device__ __forceinline__ void reset_env(Env& e, float u_zs, float u_yaw,
       zero_start ? p.time_limit : p.time_limit + p.time_span * u_time;
   e.zero_start = zero_start;
 #pragma unroll
-  for (int j = 0; j < kMaxKeys; ++j) {
-    if (j < k) {
-      e.last_keys[j] = 0;
-      e.last_press[j] = p.reset_press_time;
-    }
+  for (int j = 0; j < K; ++j) {
+    e.last_keys[j] = 0;
+    e.last_press[j] = p.reset_press_time;
   }
 }
 
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 rollout_actions_kernel(Leaves in, Leaves out,
                        const int32_t* __restrict__ key_actions,  // (T, K, N)
                        const float* __restrict__ yaw_actions,    // (T, N)
                        float* __restrict__ rewards,              // (T, N)
                        uint8_t* __restrict__ dones,              // (T, N)
-                       int n, int t_steps, int k, Params p) {
+                       int n, int t_steps, Params p) {
+  __shared__ float2 moves[kMoveTable];
+  fill_move_table(moves, p);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Env e = load_env(in, i, n, k);
-  for (int t = 0; t < t_steps; ++t) {
-    int keys[kMaxKeys];
+  Env e = load_env<K>(in, i, n);
+  auto frame = [&](int t, auto any_latch) {
+    int keys[K];
 #pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      keys[j] = j < k ? key_actions[(t * k + j) * n + i] : 0;
-    }
+    for (int j = 0; j < K; ++j) keys[j] = key_actions[(t * K + j) * n + i];
     bool done;
-    rewards[t * n + i] = env_step(e, keys, yaw_actions[t * n + i], k, p, done);
+    rewards[t * n + i] = env_step<K, decltype(any_latch)::value>(
+        e, keys, yaw_actions[t * n + i], moves, p, done);
     dones[t * n + i] = done;
+  };
+  if (latches_are_bits<K>(e)) {
+    for (int t = 0; t < t_steps; ++t) frame(t, std::false_type{});
+  } else if (t_steps > 0) {  // a hand-made latch: see latches_are_bits
+    frame(0, std::true_type{});
+    for (int t = 1; t < t_steps; ++t) frame(t, std::false_type{});
   }
-  store_env(out, e, i, n, k);
+  store_env<K>(out, e, i, n);
 }
 
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 rollout_autoreset_kernel(Leaves in, Leaves out,
                          const int32_t* __restrict__ key_actions,  // (T, K, N)
@@ -377,68 +464,101 @@ rollout_autoreset_kernel(Leaves in, Leaves out,
                          const float* __restrict__ reset_uniforms, // (T, 5, N)
                          float* __restrict__ rewards,              // (T, N)
                          uint8_t* __restrict__ dones,              // (T, N)
-                         int n, int t_steps, int k, Params p) {
+                         int n, int t_steps, Params p) {
+  __shared__ float2 moves[kMoveTable];
+  fill_move_table(moves, p);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Env e = load_env(in, i, n, k);
-  for (int t = 0; t < t_steps; ++t) {
-    int keys[kMaxKeys];
+  Env e = load_env<K>(in, i, n);
+  auto frame = [&](int t, auto any_latch) {
+    int keys[K];
 #pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      keys[j] = j < k ? key_actions[(t * k + j) * n + i] : 0;
-    }
+    for (int j = 0; j < K; ++j) keys[j] = key_actions[(t * K + j) * n + i];
     bool done;
-    rewards[t * n + i] = env_step(e, keys, yaw_actions[t * n + i], k, p, done);
+    rewards[t * n + i] = env_step<K, decltype(any_latch)::value>(
+        e, keys, yaw_actions[t * n + i], moves, p, done);
     dones[t * n + i] = done;
     if (done) {
       const float* u = reset_uniforms + (size_t)t * 5 * n + i;
-      reset_env(e, u[0], u[n], u[2 * n], u[3 * n], u[4 * n], k, p);
+      reset_env<K>(e, u[0], u[n], u[2 * n], u[3 * n], u[4 * n], p);
     }
+  };
+  if (latches_are_bits<K>(e)) {
+    for (int t = 0; t < t_steps; ++t) frame(t, std::false_type{});
+  } else if (t_steps > 0) {  // a hand-made latch: see latches_are_bits
+    frame(0, std::true_type{});
+    for (int t = 1; t < t_steps; ++t) frame(t, std::false_type{});
   }
-  store_env(out, e, i, n, k);
+  store_env<K>(out, e, i, n);
 }
 
-// Draws of env i at frame t: counter (i, t, 0, 0) gives the key bits (word
-// x, bit j for key j), the yaw uniform (y) and the first two reset uniforms
-// (z, w); counter (i, t, 1, 0), made only where the episode ended, the last
-// three (x, y, z).  The key is (seed, 0).
+// The draw layout, under key (seed, 0).  Env i's frames 3m, 3m+1 and 3m+2
+// (m = 0, 1, ...) take their actions from one call at counter (i, m, 0, 0):
+// word x holds key j of frame 3m+f in bit 4f+j, and words y, z and w hold
+// the three frames' yaw uniforms in their top 24 bits.  An episode that
+// ends at frame t re-draws from one call at counter (i, t, 1, 0): zero
+// start, yaw, time and speed from the top 24 bits of x, y, z and w, and
+// the angle from their low bytes, (x & 0xFF) << 16 | (y & 0xFF) << 8 |
+// (z & 0xFF), times 2^-24.  The plain version, env_rollout.py:
+// random_frame_inputs, draws the same bits.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 rollout_random_kernel(Leaves in, Leaves out,
                       float* __restrict__ reward_sum,    // (N,)
                       int32_t* __restrict__ done_count,  // (N,)
-                      int n, int t_steps, int k, uint32_t seed, Params p) {
+                      int n, int t_steps, uint32_t seed, Params p) {
+  static_assert(4 * (kFramesPerDraw - 1) + K <= 32, "key bits fit word x");
+  __shared__ float2 moves[kMoveTable];
+  fill_move_table(moves, p);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint2 key = make_uint2(seed, 0u);
-  Env e = load_env(in, i, n, k);
+  Env e = load_env<K>(in, i, n);
   float reward_acc = 0.0f;
   int done_acc = 0;
-  for (int t = 0; t < t_steps; ++t) {
-    const uint4 r0 = q1::philox4x32_10(make_uint4(i, t, 0u, 0u), key);
-    int keys[kMaxKeys];
-#pragma unroll
-    for (int j = 0; j < kMaxKeys; ++j) {
-      keys[j] = j < k ? (int)((r0.x >> j) & 1u) : 0;
+  // The current call's words, shifted after each frame so that x's low
+  // bits and y hold the next frame's draws.
+  uint4 draw = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t call = 0;
+  int used = kFramesPerDraw;  // frames of `draw` used
+  auto frame = [&](int t, auto any_latch) {
+    if (used == kFramesPerDraw) {  // uniform across the warp
+      draw = q1::philox4x32_10(make_uint4((uint32_t)i, call, 0u, 0u), key);
+      call += 1;
+      used = 0;
     }
+    int keys[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) keys[j] = (int)((draw.x >> j) & 1u);
     const float yaw_action =
-        (q1::uniform_from_bits(r0.y) * 2.0f - 1.0f) * p.action_range;
+        (q1::uniform_from_bits(draw.y) * 2.0f - 1.0f) * p.action_range;
+    draw = make_uint4(draw.x >> 4, draw.z, draw.w, 0u);
+    used += 1;
     bool done;
-    reward_acc = reward_acc + env_step(e, keys, yaw_action, k, p, done);
+    reward_acc = reward_acc + env_step<K, decltype(any_latch)::value>(
+                                  e, keys, yaw_action, moves, p, done);
     if (done) {
       done_acc += 1;
-      const uint4 r1 = q1::philox4x32_10(make_uint4(i, t, 1u, 0u), key);
-      reset_env(e, q1::uniform_from_bits(r0.z), q1::uniform_from_bits(r0.w),
-                q1::uniform_from_bits(r1.x), q1::uniform_from_bits(r1.y),
-                q1::uniform_from_bits(r1.z), k, p);
+      const uint4 r =
+          q1::philox4x32_10(make_uint4((uint32_t)i, (uint32_t)t, 1u, 0u), key);
+      reset_env<K>(e, q1::uniform_from_bits(r.x), q1::uniform_from_bits(r.y),
+                   q1::uniform_from_bits(r.z), q1::uniform_from_bits(r.w),
+                   q1::uniform_from_low_bytes(r.x, r.y, r.z), p);
     }
+  };
+  if (latches_are_bits<K>(e)) {
+    for (int t = 0; t < t_steps; ++t) frame(t, std::false_type{});
+  } else if (t_steps > 0) {  // a hand-made latch: see latches_are_bits
+    frame(0, std::true_type{});
+    for (int t = 1; t < t_steps; ++t) frame(t, std::false_type{});
   }
-  store_env(out, e, i, n, k);
+  store_env<K>(out, e, i, n);
   reward_sum[i] = reward_acc;
   done_count[i] = done_acc;
 }
 
 bool bad_shape(int n, int t_steps, int k) {
-  return k < 0 || k > kMaxKeys || n < 0 || t_steps < 0;
+  return (k != 3 && k != 4) || n < 0 || t_steps < 0;
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -448,6 +568,7 @@ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 // Plain C entry points, loaded with ctypes.  Pointers are device pointers
 // unless named otherwise; `stream` is a cudaStream_t.  Each returns the
 // cudaError_t of its launch (0 on success) and launches nothing for n == 0.
+// The number of keys k is 3 or 4.
 
 // rollout_actions: the state leaves without zero_start, which it keeps.
 extern "C" int q1_rollout_actions(
@@ -487,8 +608,10 @@ extern "C" int q1_rollout_actions(
   p.key_press_delay = key_press_delay;
   p.discrete_yaw_steps = discrete_yaw_steps;
   p.flags = flags;
-  rollout_actions_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      in, out, key_actions, yaw_actions, rewards, dones, n, t_steps, k, p);
+  auto kernel =
+      k == 3 ? rollout_actions_kernel<3> : rollout_actions_kernel<4>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      in, out, key_actions, yaw_actions, rewards, dones, n, t_steps, p);
   return (int)cudaGetLastError();
 }
 
@@ -502,10 +625,11 @@ extern "C" int q1_rollout_actions_autoreset(
     int discrete_yaw_steps, int flags, void* stream) {
   if (bad_shape(n, t_steps, k)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  rollout_autoreset_kernel<<<blocks_for(n), kThreads, 0,
-                             (cudaStream_t)stream>>>(
+  auto kernel =
+      k == 3 ? rollout_autoreset_kernel<3> : rollout_autoreset_kernel<4>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       leaves_from(in), leaves_from(out), key_actions, yaw_actions,
-      reset_uniforms, rewards, dones, n, t_steps, k,
+      reset_uniforms, rewards, dones, n, t_steps,
       params_from(fparams, discrete_yaw_steps, flags));
   return (int)cudaGetLastError();
 }
@@ -517,11 +641,38 @@ extern "C" int q1_rollout_random(
     int flags, unsigned int seed, void* stream) {
   if (bad_shape(n, t_steps, k)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  rollout_random_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = k == 3 ? rollout_random_kernel<3> : rollout_random_kernel<4>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       leaves_from(in), leaves_from(out), reward_sum, done_count, n, t_steps,
-      k, seed, params_from(fparams, discrete_yaw_steps, flags));
+      seed, params_from(fparams, discrete_yaw_steps, flags));
   return (int)cudaGetLastError();
 }
+
+// How a launch of n envs runs: out[0] threads per block, out[1] blocks,
+// out[2] blocks resident per SM (the runtime's occupancy query).  `kernel`
+// is 0 (rollout_actions), 1 (rollout_actions_autoreset) or 2
+// (rollout_random), the ids of env_rollout.py:_KERNEL_IDS; the shapes of
+// chip_smoke.py's tail line.
+extern "C" int q1_launch_shape(int kernel, int n, int k, int* out) {
+  if (bad_shape(n, 0, k) || kernel < 0 || kernel > 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* fns[3][2] = {
+      {(const void*)rollout_actions_kernel<3>,
+       (const void*)rollout_actions_kernel<4>},
+      {(const void*)rollout_autoreset_kernel<3>,
+       (const void*)rollout_autoreset_kernel<4>},
+      {(const void*)rollout_random_kernel<3>,
+       (const void*)rollout_random_kernel<4>}};
+  out[0] = kThreads;
+  out[1] = blocks_for(n);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], fns[kernel][k - 3], kThreads, 0);
+}
+
+// The frames whose actions one rollout_random Philox call draws: the
+// wrapper holds its plain version's FRAMES_PER_DRAW to it.
+extern "C" int q1_frames_per_draw() { return kFramesPerDraw; }
 
 // The library's Philox on m counters (4, m) with key (key0, key1), written
 // to (4, m): lets chip_smoke.py hold it against its plain version and

@@ -18,7 +18,8 @@ reset:
   from Philox4x32-10 and returns only the state, a per-env reward sum and
   the done count.  It replaces ``rollout_random``; plain version
   :func:`rollout_random_plain`, which draws the same bits with
-  :func:`philox4x32_10`.  The port's bench times it.
+  :func:`philox4x32_10` (layout: :func:`random_frame_inputs`).  The port's
+  bench times it.
 
 On CUDA tensors each wrapper launches its kernel (one thread per env, state
 held in registers across the T loop) or raises, and adds one to its
@@ -50,7 +51,9 @@ from ..env.config import INITIAL_STATE, INITIAL_YAW_ZERO, Config
 __all__ = ("rollout_actions", "rollout_actions_plain",
            "rollout_actions_autoreset", "rollout_actions_autoreset_plain",
            "rollout_random", "rollout_random_plain", "random_frame_inputs",
-           "philox4x32_10", "uniform_from_bits", "build", "build_all")
+           "FRAMES_PER_DRAW", "philox4x32_10", "uniform_from_bits",
+           "uniform_from_low_bytes", "launch_shape", "build", "build_all",
+           "compile_library")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -71,6 +74,9 @@ _ALLOW_YAW, _SMOOTH_KEYS, _AUTO_JUMP, _ALLOW_JUMP, _HOVER, _SPEED_REWARD = (
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK32 = 0xFFFFFFFF
+# Frames whose actions one Philox call draws: the plain version's layout,
+# held to the library's kFramesPerDraw when it loads (_library).
+FRAMES_PER_DRAW = 3
 
 
 def _nvcc() -> str:
@@ -94,6 +100,11 @@ def _library_path(name: str) -> Path:
     return _BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 
+def _nvcc_command(source, out, include) -> list:
+    return [_nvcc(), *_NVCC_FLAGS, "-I", str(include), "-o", str(out),
+            str(source)]
+
+
 def build_all(names=tuple(_SOURCES)) -> dict:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source, all started together; return {name: path}.
@@ -108,8 +119,7 @@ def build_all(names=tuple(_SOURCES)) -> dict:
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / _SOURCES[name])]
+        cmd = _nvcc_command(_CSRC / _SOURCES[name], tmp, _CSRC)
         jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.PIPE,
                                             text=True))
@@ -132,6 +142,23 @@ def build(name: str = "env_rollout") -> Path:
     return build_all((name,))[name]
 
 
+def compile_library(source, out, include=None) -> Path:
+    """Compile the CUDA source ``source`` with the rollout library's flags
+    into the shared library ``out``, its headers from ``include`` (default:
+    the source's directory), and keep the compiler's ``-Xptxas=-v`` report
+    beside it as ``<out>.log``; return ``out``.  For builds of another copy
+    of ``csrc/`` or of a check's own source (``scripts/``)."""
+    source, out = Path(source), Path(out)
+    include = source.parent if include is None else include
+    proc = subprocess.run(_nvcc_command(source, out, include),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(str(build()))
@@ -144,10 +171,38 @@ def _library():
                                       + [i32] * 2 + [ctypes.c_uint, ptr])
     lib.q1_philox.argtypes = [ptr, ptr, i32, ctypes.c_uint, ctypes.c_uint,
                               ptr]
+    lib.q1_launch_shape.argtypes = [i32, i32, i32, ptr]
+    lib.q1_frames_per_draw.argtypes = []
     for fn in (lib.q1_rollout_actions, lib.q1_rollout_actions_autoreset,
-               lib.q1_rollout_random, lib.q1_philox):
+               lib.q1_rollout_random, lib.q1_philox, lib.q1_launch_shape,
+               lib.q1_frames_per_draw):
         fn.restype = i32
+    if lib.q1_frames_per_draw() != FRAMES_PER_DRAW:
+        raise RuntimeError(
+            f"the library draws {lib.q1_frames_per_draw()} frames per Philox "
+            f"call, the plain version FRAMES_PER_DRAW = {FRAMES_PER_DRAW}")
     return lib
+
+
+# The kernel ids of the library's q1_launch_shape.
+_KERNEL_IDS = {"rollout_actions": 0, "rollout_actions_autoreset": 1,
+               "rollout_random": 2}
+
+
+def launch_shape(kernel: str, n: int, num_keys: int = 4) -> dict:
+    """How the library launches ``kernel`` on n envs, on the current card:
+    threads per block, blocks, blocks resident per SM (the runtime's
+    occupancy query), SMs, and the waves of resident blocks the launch
+    takes."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_library().q1_launch_shape(_KERNEL_IDS[kernel], n, num_keys,
+                                         out))
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    threads, blocks, per_sm = out
+    return {"threads_per_block": threads, "blocks": blocks,
+            "blocks_per_sm": per_sm, "sms": sms,
+            "waves": blocks / (per_sm * sms)}
 
 
 def _flags(cfg: Config) -> int:
@@ -425,26 +480,42 @@ def uniform_from_bits(bits):
     return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
 
 
+def uniform_from_low_bytes(a, b, c):
+    """A float32 uniform on [0, 1) from the low bytes of three unsigned
+    32-bit words (int64 tensors): (a & 0xFF) << 16 | (b & 0xFF) << 8 |
+    (c & 0xFF), times 2^-24."""
+    bits = ((a & 0xFF) << 16) | ((b & 0xFF) << 8) | (c & 0xFF)
+    return bits.to(torch.float32) * 2.0 ** -24
+
+
 def random_frame_inputs(cfg: Config, seed: int, t: int, n: int,
                         device="cpu"):
     """What ``rollout_random``'s kernel draws for frame ``t`` of envs
-    0..n-1: Bernoulli(0.5) keys (K, N) int32 from the bits of one word,
-    yaw actions (N,) float32 uniform on +-action_range, and the five reset
-    uniforms (5, N) float32.
+    0..n-1: Bernoulli(0.5) keys (K, N) int32, yaw actions (N,) float32
+    uniform on +-action_range, and the five reset uniforms (5, N) float32
+    that the frame's resets use.
 
-    Env i at frame t reads counter (i, t, 0, 0) for the key bits, the yaw
-    and the first two reset uniforms, and counter (i, t, 1, 0) for the last
-    three; the key is (seed, 0)."""
+    The layout, under key (seed, 0): env i's frames 3m, 3m+1 and 3m+2 take
+    their actions from one Philox call at counter (i, m, 0, 0); word x holds
+    key j of frame 3m+f in bit 4f+j, and words y, z and w hold the three
+    frames' yaw uniforms in their top 24 bits.  A reset at frame t draws one
+    call at counter (i, t, 1, 0): zero start, yaw, time and speed from the
+    top 24 bits of x, y, z and w, the angle from their low bytes
+    (:func:`uniform_from_low_bytes` of x, y, z).  The kernel makes the
+    reset's call only where an episode ended, and one action call every
+    ``FRAMES_PER_DRAW`` frames."""
     i = torch.arange(n, dtype=torch.int64, device=device)
     zero = torch.zeros_like(i)
     key = (seed & _MASK32, 0)
-    w = philox4x32_10(i, zero + t, zero, zero, *key)
-    w1 = philox4x32_10(i, zero + t, zero + 1, zero, *key)
-    key_actions = torch.stack([((w[0] >> j) & 1).to(torch.int32)
-                               for j in range(cfg.num_keys)])
-    yaw_actions = (uniform_from_bits(w[1]) * 2.0 - 1.0) * cfg.action_range
-    reset_uniforms = torch.stack([uniform_from_bits(x)
-                                  for x in (w[2], w[3], w1[0], w1[1], w1[2])])
+    call, frame = divmod(t, FRAMES_PER_DRAW)
+    w = philox4x32_10(i, zero + call, zero, zero, *key)
+    key_actions = torch.stack([((w[0] >> (4 * frame + j)) & 1)
+                               .to(torch.int32) for j in range(cfg.num_keys)])
+    yaw_actions = ((uniform_from_bits(w[1 + frame]) * 2.0 - 1.0)
+                   * cfg.action_range)
+    r = philox4x32_10(i, zero + t, zero + 1, zero, *key)
+    reset_uniforms = torch.stack([uniform_from_bits(x) for x in r]
+                                 + [uniform_from_low_bytes(*r[:3])])
     return key_actions, yaw_actions, reset_uniforms
 
 
@@ -471,12 +542,15 @@ def rollout_random(cfg: Config, state: env_core.EnvState, t_steps: int,
     """Fused T-step rollout with in-kernel random actions and in-kernel
     episode auto-reset: Bernoulli(0.5) keys, uniform yaw on
     +-action_range, and the reset uniforms, all from Philox4x32-10 keyed by
-    ``seed`` (see :func:`random_frame_inputs`).
+    ``seed``, one call per ``FRAMES_PER_DRAW`` frames of actions and one per
+    reset (layout: :func:`random_frame_inputs`).
 
     Returns (EnvState, reward_sum (N,) float32, done_count () int64).
 
     CUDA tensors go through the kernel, and ``rollout_random.launches``
-    counts its launches; CPU tensors go through the plain version.
+    counts its launches; CPU tensors go through the plain version.  The
+    kernel is bound by the rate at which the SMs issue instructions, not by
+    bytes; its design answers that (``csrc/env_rollout.cu``).
     """
     device = state.yaw.device
     n, k = _check_state(cfg, state, device)

@@ -60,10 +60,13 @@ def check_random_streams(seed: int, world_size: int, n_local: int,
                          t_steps: int):
     """Raise unless the ranks' Philox streams cannot collide.
 
-    The kernel draws env i's frame t from counter (i, t, call, 0) under key
-    (seed & 0xFFFFFFFF, 0), so streams are distinct when the ranks' keys
-    (``seed + r * SEED_STRIDE``) stay distinct in 32 bits and each env and
-    frame index fits its 32-bit counter word.
+    Under key (seed & 0xFFFFFFFF, 0) the kernel draws env i's actions of
+    frames 3m..3m+2 from counter (i, m, 0, 0) and its reset at frame t from
+    counter (i, t, 1, 0) (``env_rollout.random_frame_inputs``).  Streams
+    are distinct when the ranks' keys (``seed + r * SEED_STRIDE``) stay
+    distinct in 32 bits and the env index and the frame index (so also m =
+    t / 3) each fit their 32-bit counter word; the third word keeps action
+    and reset calls apart.
     """
     # seed + r * SEED_STRIDE repeats mod 2^32 after this many ranks.
     period = _WORD // math.gcd(SEED_STRIDE, _WORD)

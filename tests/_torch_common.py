@@ -36,7 +36,8 @@ def env_state_from_jax(st) -> tcore.EnvState:
 
 
 def assert_env_state_close(got: tcore.EnvState, want, vel_rtol=1e-5,
-                           vel_atol=1e-3, yaw_rtol=1e-6, yaw_atol=0.0):
+                           vel_atol=1e-3, yaw_rtol=1e-6, yaw_atol=0.0,
+                           time_atol=0.0):
     """``got`` (torch) against ``want`` (JAX): flags and key latches exactly,
     float leaves at the rollout kernel tolerances.
 
@@ -46,6 +47,10 @@ def assert_env_state_close(got: tcore.EnvState, want, vel_rtol=1e-5,
     written.  The mouse step then differs by up to an ulp per frame, and the
     integrated yaw by about an ulp of its magnitude (6e-5 at 512 degrees)
     per frame in which the rounding of the sum differs.
+
+    ``time_atol``: under jit, XLA on the CPU may fuse a reset's
+    ``time_limit + (1 - time_limit) * u_time`` into one multiply-add, an ulp
+    of ``time_limit`` or less off the port's two roundings.
     """
     for f in ("on_ground", "jump_released"):
         np.testing.assert_array_equal(getattr(got.player, f).numpy(),
@@ -62,7 +67,8 @@ def assert_env_state_close(got: tcore.EnvState, want, vel_rtol=1e-5,
     np.testing.assert_allclose(got.yaw.numpy(), np.asarray(want.yaw),
                                rtol=yaw_rtol, atol=yaw_atol)
     np.testing.assert_allclose(got.time_remaining.numpy(),
-                               np.asarray(want.time_remaining), rtol=1e-6)
+                               np.asarray(want.time_remaining), rtol=1e-6,
+                               atol=time_atol)
     np.testing.assert_allclose(got.last_key_press_time.numpy(),
                                np.asarray(want.last_key_press_time),
                                rtol=1e-6, atol=1e-6)

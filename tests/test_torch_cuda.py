@@ -24,7 +24,7 @@ from q1physrl_torch.models import Policy, import_policy_params
 from q1physrl_torch.ops import env_rollout
 
 from _torch_common import run_ranks
-from chip_smoke import probe_configs, rollout_inputs
+from chip_smoke import any_latches, probe_configs, rollout_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +115,61 @@ def test_random_kernel_equals_plain_version(cuda, name, n):
     assert torch.equal(got_r, want_r)
     assert int(got_d) == int(want_d)
     _assert_states_equal(got_state, want_state)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 7, 101])
+@pytest.mark.parametrize("name", ["run4", "allow_yaw=False", "hover=True"])
+def test_random_kernel_equals_plain_version_at_odd_t(cuda, name, steps):
+    """T that ends inside a Philox call's frames (1, 2, 7 and 101 are not
+    multiples of FRAMES_PER_DRAW; 7 and 101 are odd): bitwise equal, the
+    episodes ending in the first frames."""
+    cfg = dataclasses.replace(probe_configs(RUN4)[name], zero_start_prob=0.3)
+    state, _, _ = _case(cfg, 1000, 1, 6, cuda)
+    state.time_remaining = state.time_remaining * 0.02
+    got_state, got_r, got_d = env_rollout.rollout_random(cfg, state, steps,
+                                                         seed=23)
+    want_state, want_r, want_d = env_rollout.rollout_random_plain(
+        cfg, state, steps, seed=23)
+    assert int(want_d) > 0
+    assert torch.equal(got_r, want_r)
+    assert int(got_d) == int(want_d)
+    _assert_states_equal(got_state, want_state)
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("smooth_keys", [True, False])
+@pytest.mark.parametrize("kernel", ["rollout_actions",
+                                    "rollout_actions_autoreset",
+                                    "rollout_random"])
+def test_kernels_follow_plain_versions_on_any_key_latch(cuda, kernel,
+                                                        smooth_keys, steps):
+    """A hand-made state's key latches may hold any int32 (here -5 to 7):
+    each kernel takes such an env's first frame by the plain version's
+    operations, and stays bitwise equal to it."""
+    cfg = dataclasses.replace(RUN4, smooth_keys=smooth_keys,
+                              zero_start_prob=0.3)
+    state, ka, ya = _case(cfg, 1000, steps, 8, cuda)
+    state = any_latches(state, 8)
+    if kernel == "rollout_random":
+        got = env_rollout.rollout_random(cfg, state, steps, seed=29)
+        want = env_rollout.rollout_random_plain(cfg, state, steps, seed=29)
+    else:
+        args = (cfg, state, ka, ya)
+        if kernel == "rollout_actions_autoreset":
+            args += (torch.rand((steps, 5, 1000), device=cuda),)
+        got = getattr(env_rollout, kernel)(*args)
+        want = getattr(env_rollout, kernel + "_plain")(*args)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    _assert_states_equal(got[0], want[0])
+
+
+def test_launch_shape(cuda):
+    for kernel in ("rollout_actions", "rollout_actions_autoreset",
+                   "rollout_random"):
+        shape = env_rollout.launch_shape(kernel, 1 << 20)
+        assert shape["blocks"] * shape["threads_per_block"] == 1 << 20
+        assert shape["blocks_per_sm"] >= 1 and shape["waves"] > 0
 
 
 def test_philox_matches_plain_version_and_curand(cuda):

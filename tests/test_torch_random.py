@@ -114,21 +114,8 @@ def test_random_frame_inputs_shapes_and_spread():
     assert torch.equal(c[1], ya[:100])  # env i's draws do not depend on N
 
 
-@pytest.mark.parametrize("name", ["run4", "hover=True", "speed_reward=True"])
-def test_rollout_random_replays_through_jax(name):
-    """The plain rollout_random's own draws, fed to the JAX package's
-    step_autoreset frame by frame, give its reward sums, done count and
-    state (rollout-kernel tolerances; sums of 120 rewards to 1e-3)."""
-    cfg = probe_configs(dataclasses.replace(CFG, zero_start_prob=0.3))[name]
-    jcfg = _jax_cfg(cfg)
-    n, steps, seed = 128, 120, 9
-    state, _, _ = rollout_inputs(cfg, n, 1, seed, "cpu", near_end=0.5)
-    launches = env_rollout.rollout_random.launches
-    got_state, reward_sum, done_count = env_rollout.rollout_random(
-        cfg, state, steps, seed=seed)
-    assert env_rollout.rollout_random.launches == launches  # no kernel here
-
-    jstate = jcore.EnvState(
+def _jax_state(state):
+    return jcore.EnvState(
         player=jcore.phys.PlayerState(**{
             f: jnp.asarray(getattr(state.player, f).numpy())
             for f in ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
@@ -139,8 +126,26 @@ def test_rollout_random_replays_through_jax(name):
         last_keys=jnp.asarray(state.last_keys.numpy()),
         last_key_press_time=jnp.asarray(state.last_key_press_time.numpy()),
         rng=None)
-    jstep = jax.jit(functools.partial(jcore.step_autoreset, jcfg,
-                                      compute_observation=False))
+
+
+def _replay_through_jax(name, jit):
+    """The plain rollout_random at 128 envs x 120 frames, and the JAX
+    package's step_autoreset fed its draws frame by frame (under jax.jit
+    or eagerly): (port's state, reward sums, done count), (JAX's state,
+    reward sums, done count), the config."""
+    cfg = probe_configs(dataclasses.replace(CFG, zero_start_prob=0.3))[name]
+    jcfg = _jax_cfg(cfg)
+    n, steps, seed = 128, 120, 9
+    state, _, _ = rollout_inputs(cfg, n, 1, seed, "cpu", near_end=0.5)
+    launches = env_rollout.rollout_random.launches
+    got = env_rollout.rollout_random(cfg, state, steps, seed=seed)
+    assert env_rollout.rollout_random.launches == launches  # no kernel here
+
+    jstate = _jax_state(state)
+    jstep = functools.partial(jcore.step_autoreset, jcfg,
+                              compute_observation=False)
+    if jit:
+        jstep = jax.jit(jstep)
     rsum = np.zeros(n, np.float32)
     dones = 0
     for i in range(steps):
@@ -150,11 +155,63 @@ def test_rollout_random_replays_through_jax(name):
                             reset_uniforms=jnp.asarray(ru.numpy()))
         rsum = rsum + np.asarray(out.reward)
         dones += int(np.asarray(out.done).sum())
-    assert int(done_count) == dones and dones > n // 4
-    np.testing.assert_allclose(reward_sum.numpy(), rsum, rtol=1e-5,
-                               atol=1e-3)
-    # 120 frames: a few ulps of yaw (see assert_env_state_close).
-    assert_env_state_close(got_state, jstate, yaw_atol=2e-4)
+    assert int(got[2]) == dones and dones > n // 4
+    np.testing.assert_allclose(got[1].numpy(), rsum, rtol=1e-5, atol=1e-3)
+    return got[0], jstate, cfg
+
+
+@pytest.mark.parametrize("name", ["run4", "hover=True", "speed_reward=True"])
+def test_rollout_random_replays_through_jax(name):
+    """The plain rollout_random's own draws, fed to the JAX package's
+    jitted step_autoreset frame by frame, give its reward sums, done count
+    and state (rollout-kernel tolerances; sums of 120 rewards to 1e-3).
+
+    Two allowances are the jitted step's: 120 frames of yaw carry a few
+    ulps (see assert_env_state_close), and the episode clock one ulp of
+    time_limit, because XLA on the CPU fuses the reset's ``time_limit +
+    (1 - time_limit) * u_time`` into one multiply-add for some draws
+    (test_jitted_reset_fuses_the_time_draw); the decrement by time_delta
+    then carries that ulp down towards 0."""
+    got, jstate, cfg = _replay_through_jax(name, jit=True)
+    assert_env_state_close(got, jstate, yaw_atol=2e-4, time_atol=float(
+        np.spacing(np.float32(cfg.time_limit))))
+
+
+@pytest.mark.parametrize("name", ["run4", "hover=True", "speed_reward=True"])
+def test_rollout_random_replays_through_eager_jax(name):
+    """As test_rollout_random_replays_through_jax with the JAX step run
+    eagerly, as written: it divides the mouse step and rounds the reset's
+    product before its add as the port does, so the state needs neither of
+    the jitted step's allowances."""
+    got, jstate, _ = _replay_through_jax(name, jit=False)
+    assert_env_state_close(got, jstate)
+
+
+def test_jitted_reset_fuses_the_time_draw():
+    """Why the jitted replay allows an ulp of time_limit: on the CPU, XLA
+    fuses reset_from_uniforms' ``time_limit + (1 - time_limit) * u_time``
+    into one multiply-add rounded once, while the eager package (and the
+    port) round the product and then the sum.  On 24-bit uniforms, some
+    draws disagree, each by one ulp of time_limit at most (the product's
+    rounding); the eager result is the two roundings, and the jitted one the
+    exact value rounded once."""
+    jcfg = _jax_cfg(CFG)
+    rng = np.random.default_rng(4)
+    u_time = ((rng.integers(0, 1 << 24, 4096) * 2.0 ** -24)
+              .astype(np.float32))
+    zeros = jnp.full(u_time.shape, 0.5, jnp.float32)  # never a zero start
+    reset = functools.partial(jcore.reset_from_uniforms, jcfg)
+    args = (zeros, zeros, jnp.asarray(u_time), zeros, zeros)
+    eager = np.asarray(reset(*args).time_remaining)
+    jitted = np.asarray(jax.jit(reset)(*args).time_remaining)
+    limit, span = np.float32(CFG.time_limit), np.float32(1.0 - CFG.time_limit)
+    np.testing.assert_array_equal(eager, limit + span * u_time)
+    once = (np.float64(limit) + np.float64(span) * u_time.astype(np.float64)
+            ).astype(np.float32)  # the product is exact in float64
+    np.testing.assert_array_equal(jitted, once)
+    differ = eager != jitted
+    assert differ.any()
+    assert np.all(np.abs(eager - jitted) <= np.spacing(limit))
 
 
 def test_rollout_random_statistics_match_xla_scan():
@@ -229,3 +286,116 @@ def test_rollout_random_is_seeded_and_checks_arguments():
     with pytest.raises(ValueError):  # two key latches for four keys
         env_rollout.rollout_random(
             CFG, dataclasses.replace(state, last_keys=state.last_keys[:2]), 4)
+
+
+# --- the draw layout: FRAMES_PER_DRAW frames of actions per Philox call ---
+
+
+def _layout_draws(cfg, seed, t, n):
+    """Frame t's keys, yaw and reset uniforms for envs 0..n-1, from the
+    layout as the kernel's note states it, on Python ints: counter
+    (i, t // F, 0, 0) for the actions (key j of frame f in bit 4f + j of
+    word x, the yaw in word 1 + f), counter (i, t, 1, 0) for the reset."""
+    frames = env_rollout.FRAMES_PER_DRAW
+    call, f = divmod(t, frames)
+    keys = np.zeros((cfg.num_keys, n), np.int32)
+    yaw = np.zeros(n, np.float32)
+    resets = np.zeros((5, n), np.float32)
+    for i in range(n):
+        w = _philox_python((i, call, 0, 0), (seed, 0))
+        for j in range(cfg.num_keys):
+            keys[j, i] = (w[0] >> (4 * f + j)) & 1
+        u = np.float32((w[1 + f] >> 8) * 2.0 ** -24)
+        yaw[i] = (u * np.float32(2) - np.float32(1)) * np.float32(
+            cfg.action_range)
+        r = _philox_python((i, t, 1, 0), (seed, 0))
+        resets[:4, i] = [(x >> 8) * 2.0 ** -24 for x in r]
+        resets[4, i] = ((r[0] & 0xFF) << 16 | (r[1] & 0xFF) << 8
+                        | (r[2] & 0xFF)) * 2.0 ** -24
+    return keys, yaw, resets
+
+
+@pytest.mark.parametrize("t", [0, 1, 2, 3, 7, 8, 719])
+def test_random_frame_inputs_follow_the_layout(t):
+    """Each frame's draws are the bits the layout names, recomputed from
+    Philox4x32-10 on Python ints, in each position of its call."""
+    cfg = dataclasses.replace(CFG, num_envs=None)
+    for seed in (0, 0xDEADBEEF):
+        ka, ya, ru = env_rollout.random_frame_inputs(cfg, seed, t, 40)
+        keys, yaw, resets = _layout_draws(cfg, seed, t, 40)
+        np.testing.assert_array_equal(ka.numpy(), keys)
+        np.testing.assert_array_equal(ya.numpy(), yaw)
+        np.testing.assert_array_equal(ru.numpy(), resets)
+
+
+def test_uniform_from_low_bytes_is_exact():
+    """The fifth reset uniform: the three low bytes as one 24-bit integer,
+    times 2^-24, with no rounding, inside [0, 1)."""
+    rng = np.random.default_rng(3)
+    words = rng.integers(0, 1 << 32, (3, 5000), dtype=np.int64)
+    words[:, 0] = 0xFFFFFFFF
+    words[:, 1] = 0xFFFFFF00
+    got = env_rollout.uniform_from_low_bytes(
+        *torch.from_numpy(words)).numpy()
+    a, b, c = (words & 0xFF)
+    want = ((a << 16) | (b << 8) | c) / 2.0 ** 24
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.astype(np.float64), want)
+    assert got[0] == (2 ** 24 - 1) / 2 ** 24 and got[1] == 0.0
+    assert got.min() >= 0 and got.max() < 1
+
+
+@pytest.mark.parametrize("steps", [8, 9])
+def test_rollout_random_plain_replays_the_layout(steps):
+    """rollout_random at a T that is not a multiple of the frames per call
+    (8) and at an odd T (9): a loop of step_autoreset on the layout's
+    draws, recomputed by hand, gives its state, reward sums and done
+    count exactly."""
+    cfg = dataclasses.replace(CFG, zero_start_prob=0.3)
+    n, seed = 48, 21
+    state, _, _ = rollout_inputs(cfg, n, 1, 5, "cpu", near_end=1.0)
+    state.time_remaining = state.time_remaining * 0.05  # ends inside T
+    got_state, reward_sum, done_count = env_rollout.rollout_random(
+        cfg, state, steps, seed=seed)
+    want = state
+    rsum = torch.zeros(n)
+    dones = 0
+    for t in range(steps):
+        ka, ya, ru = (torch.from_numpy(x) for x in
+                      _layout_draws(cfg, seed, t, n))
+        want, out = tcore.step_autoreset(cfg, want, ka, ya,
+                                         compute_observation=False,
+                                         reset_uniforms=ru)
+        rsum = rsum + out.reward
+        dones += int(out.done.sum())
+    assert int(done_count) == dones > 0
+    assert torch.equal(reward_sum, rsum)
+    for f in ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
+              "jump_released"):
+        assert torch.equal(getattr(got_state.player, f),
+                           getattr(want.player, f)), f
+    for f in ("yaw", "time_remaining", "zero_start", "last_keys",
+              "last_key_press_time"):
+        assert torch.equal(getattr(got_state, f), getattr(want, f)), f
+
+
+def test_layout_statistics():
+    """Over 60,000 envs: each of the five reset uniforms and the keys of
+    each frame position of a call keep their means within 5 standard errors
+    of 0.5, and the keys of frames 3m and 3m+1, which share word x, are
+    uncorrelated within 5 standard errors of 0 (1 / sqrt(n))."""
+    n = 60_000
+    cfg = dataclasses.replace(CFG, num_envs=None)
+    draws = [env_rollout.random_frame_inputs(cfg, 77, t, n)
+             for t in range(3)]
+    se_u, se_k = np.sqrt(1 / 12 / n), 0.5 / np.sqrt(n)
+    for _, _, ru in draws:
+        assert np.all(np.abs(ru.double().mean(dim=1).numpy() - 0.5)
+                      < 5 * se_u), ru.mean(dim=1)
+    for ka, _, _ in draws:
+        assert np.all(np.abs(ka.double().mean(dim=1).numpy() - 0.5)
+                      < 5 * se_k), ka.double().mean(dim=1)
+    for j in range(cfg.num_keys):
+        a, b = draws[0][0][j].double(), draws[1][0][j].double()
+        corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        assert abs(corr) < 5 / np.sqrt(n), (j, corr)

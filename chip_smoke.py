@@ -16,9 +16,10 @@ Phases, each printing one JSON line:
                configs (N=4,096, T=64, episodes ending inside the window),
                then compares and times kernel and plain version at the
                shapes the main paths launch beside each kernel's bound:
-               rollout_actions at the scoring shape (N=512, T=1) and
-               N=65,536, T=128; rollout_actions_autoreset at the training
-               shape (N=8,192, T=1); rollout_random at N=65,536, T=128 and
+               rollout_actions at the scoring shape (N=512, T=1), the
+               eval_sim shape (N=1, T=1) and N=65,536, T=128;
+               rollout_actions_autoreset at the training shape (N=8,192,
+               T=1); rollout_random at N=65,536, T=128 and
                the bench shape (N=2^20, T=720), and also at an odd T
                (N=4,096, T=67), and each kernel on run4 from a state whose
                key latches hold any int32 (ANY_LATCHES).  rollout_random's
@@ -29,6 +30,22 @@ Phases, each printing one JSON line:
                ``configs/run4.yml`` (512 stochastic + 2 deterministic zero-start
                episodes), checks one kernel launch per env step and the scores
                against ``data/checkpoints/tpu_pb/eval.json``.
+4a. analysis — ``analyse.eval_sim`` of ``tpu_pb``, deterministic, under run4 at
+               full width on the card: one rollout_actions launch per frame;
+               the decoded yaw of each frame equal, to the bit, to the yaw
+               the kernel wrote (a replay of the recorded actions through the
+               kernel, each launch held against the plain version on the same
+               state and actions to the bit, which also reproduces the
+               recorded states and rewards to the bit); the return against
+               eval.json's deterministic score and against the same
+               eval_sim on the CPU; then the
+               counterfactual sweep (``hypothetical_delta_speeds``, 360 x T
+               states) on the card against the CPU.
+4b. scoring_r5 — the evaluate CLI on round 5's winner,
+               ``data/checkpoints/repl_r5/best_member_02_rllib`` given as a
+               directory (512 + 2 episodes, run4): one launch per env step,
+               the stochastic score against ``repl_r5/eval_summary.json``,
+               the deterministic one against the JAX package's on the CPU.
 5. training  — the port's Trainer on ``configs/run_tpu_e3.yml`` (8,192 envs x
                96 frames, minibatch 128, 3 epochs, full-width towers) for one
                iteration into a temporary directory: one launch of
@@ -114,6 +131,32 @@ OPS_PER_RANDOM_RESET = PHILOX_OPS + 4 * 4 + 9
 # one flipped rounding, so 30 leaves room for several.
 STOCHASTIC_MEAN, STOCHASTIC_TOL = 5934.47216796875, 10.0
 DETERMINISTIC, DETERMINISTIC_TOL = 5945.88232421875, 30.0
+# eval_sim's deterministic episode on the card against the same on the CPU:
+# the policy's products sum in another order (tests/test_torch_cuda.py,
+# test_deterministic_score_on_card_matches_cpu).
+ANALYSIS_CPU_TOL = 10.0
+# The counterfactual sweep on the card against the CPU: sin/cos and hypot
+# differ by an ulp or two between the card's and the CPU's libraries
+# (tests/test_torch_phys.py:65-66), and a speed gain is the difference of
+# two speeds near 300-700 ups, whose float32 ulp is 3-6e-5: 1e-3 is 16 of
+# them.
+SWEEP_ATOL = 1e-3
+# Round 5's winner (gr7777) exported from its orbax checkpoint by
+# scripts/torch_export_orbax.py, and its scores in
+# data/checkpoints/repl_r5/eval_summary.json (std 26.9, max 5,834.2; the
+# file has no min).  10 is about 8 standard errors of a 512-episode mean.
+R5_CHECKPOINT = (ROOT / "data" / "checkpoints" / "repl_r5"
+                 / "best_member_02_rllib")
+R5_STOCHASTIC_MEAN, R5_STOCHASTIC_TOL = 5782.3662109375, 10.0
+R5_STD, R5_MAX = 26.892921447753906, 5834.21875
+# Its deterministic episode follows another trajectory on the TPU
+# (eval_summary.json: 5,799.24, printed beside the card's) than on the CPU
+# in both packages, so the card is held to the JAX package's deterministic
+# score on the CPU (tests/test_torch_analyse.py,
+# test_round5_winner_scores_match_jax, checks this constant), within 10
+# as the port's CPU score is.
+R5_TPU_DETERMINISTIC = 5799.24169921875
+R5_DETERMINISTIC, R5_DETERMINISTIC_TOL = 5828.84716796875, 10.0
 
 # Kernel vs plain version (as tests/test_pallas_rollout.py compares the
 # Pallas kernel with its scan).
@@ -132,6 +175,7 @@ ODD_T_SHAPE = (4096, 67)
 # plain version's operations (csrc/env_rollout.cu, latches_are_bits).
 ANY_LATCHES = (-5, -1, 0, 1, 2, 3, 7)
 ACTIONS_SHAPES = {"scoring": (512, 1, 1000, 100),
+                  "analysis": (1, 1, 1000, 100),
                   "throughput": (65536, 128, 20, 2)}
 AUTORESET_SHAPES = {"training": (8192, 1, 1000, 100)}
 RANDOM_SHAPES = {"throughput": (65536, 128, 20, 2),
@@ -222,6 +266,48 @@ def any_latches(state, seed):
                                         tuple(state.last_keys.shape)),
                              dtype=torch.int32, device=state.last_keys.device)
     return dataclasses.replace(state, last_keys=last_keys)
+
+
+def replay_eval_sim(env_config, result, seed, device):
+    """Replay an ``analyse.eval_sim`` result's recorded actions through
+    ``rollout_actions`` from the same zero start, one launch per frame, and
+    hold each launch against ``rollout_actions_plain`` on the same state and
+    actions, to the bit: the eval_sim shape (N=1, T=1, one partly filled
+    block) along a real trajectory.  Returns the yaw the kernel wrote at
+    each frame, as numpy, whether the replay met the recorded pre-step
+    states and rewards to the bit, and the largest difference from the
+    plain version (0.0; any other raises)."""
+    import torch
+
+    from q1physrl_torch.env import core
+    from q1physrl_torch.ops.env_rollout import (rollout_actions,
+                                                rollout_actions_plain)
+
+    cfg = dataclasses.replace(env_config, num_envs=None, zero_start_prob=1.0)
+    k = cfg.num_keys
+    ka = torch.tensor(result.action[:, :k].astype(np.int32), device=device)
+    ya = torch.tensor(result.action[:, k].astype(np.float32), device=device)
+    fields = [f.name for f in dataclasses.fields(result.player_state)]
+    err = 0.0
+    with torch.inference_mode():
+        state = core.reset(cfg, torch.Generator(device).manual_seed(seed), 1,
+                           device=device)
+        pre, yaws, rewards = [], [], []
+        for t in range(len(result.reward)):
+            pre.append([getattr(state.player, f) for f in fields])
+            frame = (ka[t].view(1, k, 1), ya[t].view(1, 1))
+            got = rollout_actions(cfg, state, *frame)
+            err = max(err, _compare(f"eval_sim frame {t}", got,
+                                    rollout_actions_plain(cfg, state,
+                                                          *frame)))
+            state, r, _ = got
+            yaws.append(state.yaw)
+            rewards.append(r[0])
+        same = np.array_equal(torch.cat(rewards).cpu().numpy(), result.reward)
+        for i, f in enumerate(fields):
+            got = torch.cat([p[i] for p in pre]).cpu().numpy()
+            same &= np.array_equal(got, getattr(result.player_state, f))
+        return torch.cat(yaws).cpu().numpy(), bool(same), err
 
 
 def _float_leaves(state):
@@ -612,6 +698,112 @@ def _phase_training(device):
         _check_training("training", trained, r, "rollout_actions_autoreset",
                         iterations * run.ppo.rollout_length)
     return result
+
+
+def _seconds(fn, device):
+    """``fn()`` and the host seconds it took, the card synchronized."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _phase_analysis(run, device, steps):
+    """4a: eval_sim of tpu_pb on the card, its checks, and the sweep.
+    Returns the launches of rollout_actions in the eval_sim on the card,
+    and the largest difference of the replay's launches from the plain
+    version."""
+    import torch
+
+    from q1physrl_torch import analyse
+    from q1physrl_torch.models import Policy, import_policy_params
+    from q1physrl_torch.ops.env_rollout import rollout_actions
+
+    cpu = torch.device("cpu")
+    policies = {}
+    for dev in (device, cpu):
+        policies[dev.type] = Policy(run.env, device=dev)
+        policies[dev.type].load_state_dict(import_policy_params(
+            str(CHECKPOINT)))
+    sim = lambda dev: analyse.eval_sim(policies[dev.type], run.env,
+                                       deterministic=True, device=dev)
+    rollout_actions.launches = 0
+    card, card_s = _seconds(lambda: sim(device), device)
+    launches = rollout_actions.launches
+    host, host_s = _seconds(lambda: sim(cpu), cpu)
+
+    kernel_yaw, replayed, replay_err = replay_eval_sim(run.env, card, 0,
+                                                      device)
+    yaw_bitwise = np.array_equal(kernel_yaw, card.yaw)
+    sweep, sweep_s = _seconds(card.hypothetical_delta_speeds, device)
+    sweep_cpu, sweep_cpu_s = _seconds(dataclasses.replace(
+        card, device="cpu").hypothetical_delta_speeds, cpu)
+    sweep_err = float(np.abs(sweep - sweep_cpu).max())
+    returns = {"cuda": float(card.reward.sum()),
+               "cpu": float(host.reward.sum())}
+    _emit({"phase": "analysis", "config": str(RUN_YAML.relative_to(ROOT)),
+           "frames": steps, "recorded_frames": len(card.reward),
+           "launches": launches, "seconds": {"cuda": card_s, "cpu": host_s},
+           "return": returns, "yaw_equals_kernel_bitwise": yaw_bitwise,
+           "replay_equals_record_bitwise": replayed,
+           "replay_max_abs_err_vs_plain": replay_err,
+           "sweep": {"shape": list(sweep.shape), "max_abs_err": sweep_err,
+                     "atol": SWEEP_ATOL,
+                     "seconds": {"cuda": sweep_s, "cpu": sweep_cpu_s}}})
+    if launches != steps:
+        raise RuntimeError(f"analysis: expected one rollout_actions launch "
+                           f"per frame ({steps}), counted {launches}")
+    if not (yaw_bitwise and replayed):
+        raise AssertionError("analysis: the recorded decoded yaw or the "
+                             "replayed trajectory differs from the kernel's")
+    if not abs(returns["cuda"] - DETERMINISTIC) <= DETERMINISTIC_TOL:
+        raise RuntimeError(f"analysis: return {returns['cuda']} is not "
+                           f"within {DETERMINISTIC_TOL} of {DETERMINISTIC}")
+    if not abs(returns["cuda"] - returns["cpu"]) <= ANALYSIS_CPU_TOL:
+        raise RuntimeError(f"analysis: the card's return is not within "
+                           f"{ANALYSIS_CPU_TOL} of the CPU's: {returns}")
+    if not (sweep.shape == (360, len(card.reward))
+            and np.isfinite(sweep).all() and sweep_err <= SWEEP_ATOL):
+        raise AssertionError(f"analysis: the sweep on the card differs from "
+                             f"the CPU's by {sweep_err} (shape "
+                             f"{sweep.shape})")
+    return launches, replay_err
+
+
+def _phase_scoring_r5(device, steps):
+    """4b: the evaluate CLI on round 5's winner, given as a directory.
+    Returns the launches of rollout_actions."""
+    from q1physrl_torch.algo import evaluate
+    from q1physrl_torch.ops.env_rollout import rollout_actions
+
+    rollout_actions.launches = 0
+    (sto, det), seconds = _seconds(lambda: evaluate.main(
+        [str(RUN_YAML), str(R5_CHECKPOINT), "512", "--device", str(device)]),
+        device)
+    launches = rollout_actions.launches
+    _emit({"phase": "scoring_r5",
+           "checkpoint": str(R5_CHECKPOINT.relative_to(ROOT)),
+           "seconds": seconds, "launches": launches, "stochastic": sto,
+           "deterministic": det["mean"],
+           "jax_cpu_deterministic": R5_DETERMINISTIC,
+           "eval_summary": {"stochastic_mean": R5_STOCHASTIC_MEAN,
+                            "std": R5_STD, "max": R5_MAX,
+                            "deterministic": R5_TPU_DETERMINISTIC}})
+    if launches != 2 * steps:
+        raise RuntimeError(f"scoring_r5: expected one kernel launch per env "
+                           f"step ({2 * steps}), counted {launches}")
+    if not abs(sto["mean"] - R5_STOCHASTIC_MEAN) <= R5_STOCHASTIC_TOL:
+        raise RuntimeError(f"scoring_r5: stochastic mean {sto['mean']} is "
+                           f"not within {R5_STOCHASTIC_TOL} of "
+                           f"{R5_STOCHASTIC_MEAN}")
+    if not abs(det["mean"] - R5_DETERMINISTIC) <= R5_DETERMINISTIC_TOL:
+        raise RuntimeError(f"scoring_r5: deterministic score {det['mean']} "
+                           f"is not within {R5_DETERMINISTIC_TOL} of the "
+                           f"JAX package's on the CPU, {R5_DETERMINISTIC}")
+    return launches
 
 
 # --- data-parallel phases ---------------------------------------------------
@@ -1193,6 +1385,10 @@ def main(device=None) -> int:
         raise RuntimeError(f"deterministic score {det['mean']} is not within "
                            f"{DETERMINISTIC_TOL} of {DETERMINISTIC}")
 
+    # 4a. the analysis path; 4b. round 5's winner through the evaluate CLI
+    analysis_launches, analysis_err = _phase_analysis(run, device, steps)
+    r5_launches = _phase_scoring_r5(device, steps)
+
     # 5. training through the Trainer
     training = _phase_training(device)
 
@@ -1224,9 +1420,14 @@ def main(device=None) -> int:
                 "bound_by": main["bound_by"], "library_ms": None,
                 "shapes": shapes}
 
+    actions_entry = entry("rollout_actions", 177, actions_launches,
+                          actions_t["scoring"],
+                          max(actions_err, analysis_err), actions_t)
+    actions_entry["launches_by_path"] = {"scoring": actions_launches,
+                                         "analysis": analysis_launches,
+                                         "scoring_r5": r5_launches}
     _emit({"kernels": [
-        entry("rollout_actions", 177, actions_launches, actions_t["scoring"],
-              actions_err, actions_t),
+        actions_entry,
         entry("rollout_actions_autoreset", 248, training["launches"],
               autoreset_t["training"], autoreset_err, autoreset_t),
         entry("rollout_random", 343, random_launches, random_t["bench"],

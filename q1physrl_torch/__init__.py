@@ -9,13 +9,15 @@ imports), holding the same modules in PyTorch's idiom:
                       checkpoint import and export
 - ``ops``             the hand-written CUDA env-rollout kernels, their
                       wrappers and their plain versions
-- ``analyse``         the zero-start scoring instrument
+- ``analyse``         the zero-start scoring instrument, ``eval_sim`` and
+                      the trajectory analysis (counterfactual sweep,
+                      plots, key overlay, demo parsing)
 - ``algo``            run configs, PPO, checkpoints, the training driver
                       and the evaluation CLI
 - ``parallel``        data-parallel training over ``torch.distributed``:
                       process groups, the env axis split by rank, the
                       explicit data-parallel iteration
-- ``utils``           the metrics writer
+- ``utils``           the metrics writer, the .dem reader and writer
 - ``bench``           the throughput bench
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

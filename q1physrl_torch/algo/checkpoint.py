@@ -12,7 +12,8 @@ Env state is left out: episodes restart on resume.  So the format does
 not depend on how many ranks trained: a checkpoint of a multi-rank run
 restores into one process, and the other way round.  In a process group
 rank 0 alone writes, and every rank waits for it; every rank restores from
-the same files.
+the same files.  The generator's state does bind a checkpoint to the
+device kind it was trained on (CPU or CUDA).
 """
 
 from __future__ import annotations
@@ -63,15 +64,34 @@ def _write(path: str, ts):
                          timesteps_total=int(ts.env_steps))
 
 
+def _generator_kind(state: torch.Tensor) -> str:
+    """The kind of generator a stored state came from, by its size: a CUDA
+    generator's is 16 bytes (seed and offset), a CPU generator's MT19937
+    state about 5 KB."""
+    return "cuda" if state.numel() == 16 else "cpu"
+
+
 def restore_checkpoint(path: str, ts):
     """Restore into an existing TrainState (shapes must match); its env
-    state and episode accumulators stay as they are."""
+    state and episode accumulators stay as they are.
+
+    The run's generator resumes only on the device kind it was saved from:
+    a CPU and a CUDA generator cannot carry each other's state, and
+    reseeding would change the run, so a mismatch raises ValueError."""
     tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                       weights_only=True)
+    saved = tree["generator"]
+    live = ts.generator.get_state()
+    if saved.numel() != live.numel():
+        raise ValueError(
+            f"{path}: the checkpoint's generator state was saved from a "
+            f"{_generator_kind(saved)} generator, restoring into a "
+            f"{ts.generator.device.type} one; resume on the device kind "
+            f"the run was trained on")
     device = ts.kl_coeff.device
     ts.policy.load_state_dict(tree["params"])
     opt = tree["opt_state"]
-    ts.generator.set_state(tree["generator"])
+    ts.generator.set_state(saved)
     return dataclasses.replace(
         ts,
         opt_state=dataclasses.replace(

@@ -8,11 +8,14 @@ usage: python -m q1physrl_torch.algo.evaluate <run.yaml> <checkpoint>
 Reads the run config and an RLLib checkpoint pickle (the format both
 packages share), and prints stochastic and deterministic zero-start
 statistics — the low-variance measurement of the training north-star
-metric.  Runs on the card unless ``--device cpu`` is given.  Under
-torchrun (or inside a process group the caller joined) each of the W ranks
-plays num_episodes / W of the stochastic and 2 / W of the deterministic
-episodes (so W divides both), on ``cuda:LOCAL_RANK`` unless ``--device``
-names a device; rank 0 prints.
+metric.  ``<checkpoint>`` is the pickle itself, a directory holding it
+(an ``iter_%07d`` directory of the trainer, or an exported one), or the
+trainer's ``checkpoint_dir``, whose latest ``iter_*`` is scored.  Runs on
+the card unless ``--device cpu`` is given.  Under torchrun (or inside a
+process group the caller joined) each of the W ranks plays num_episodes /
+W of the stochastic and 2 / W of the deterministic episodes (so W divides
+both), on ``cuda:LOCAL_RANK`` unless ``--device`` names a device; rank 0
+prints.
 """
 
 from __future__ import annotations
@@ -28,9 +31,19 @@ from ..parallel import distributed
 from ..parallel.mesh import env_shard
 from ..models.import_rllib import import_policy_params
 from ..models.policy import Policy
+from .checkpoint import POLICY_FILE, latest_checkpoint
 from .config import load_run_config
 
-__all__ = ("main",)
+__all__ = ("main", "resolve_checkpoint")
+
+
+def resolve_checkpoint(path: str) -> str:
+    """The policy pickle that ``path`` names: ``path`` itself if it is a
+    file; else the ``checkpoint`` pickle inside the latest ``iter_*`` of
+    ``path`` or, when it has none, inside ``path``."""
+    if os.path.isfile(path):
+        return path
+    return os.path.join(latest_checkpoint(path) or path, POLICY_FILE)
 
 
 def _describe(path: str) -> str:
@@ -50,7 +63,10 @@ def main(argv=None):
         prog="python -m q1physrl_torch.algo.evaluate",
         description="Score a checkpoint on zero-start episodes.")
     parser.add_argument("run_yaml")
-    parser.add_argument("checkpoint", help="RLLib checkpoint pickle")
+    parser.add_argument("checkpoint",
+                        help="RLLib checkpoint pickle, a directory holding "
+                             "one, or a training run's checkpoint_dir "
+                             "(its latest iter_*)")
     parser.add_argument("num_episodes", nargs="?", type=int, default=512)
     parser.add_argument("--device",
                         help="default: cuda, or cuda:LOCAL_RANK under "
@@ -78,9 +94,10 @@ def main(argv=None):
 def _score(args, device):
     run = load_run_config(args.run_yaml)
     policy = Policy(run.env, device=device)
-    policy.load_state_dict(import_policy_params(args.checkpoint))
+    path = resolve_checkpoint(args.checkpoint)
+    policy.load_state_dict(import_policy_params(path))
     say = print if distributed.rank() == 0 else (lambda *a: None)
-    say(f"checkpoint: {_describe(args.checkpoint)}")
+    say(f"checkpoint: {_describe(path)}")
 
     multi = distributed.is_initialized()
     sto = analyse.eval_zero_start(

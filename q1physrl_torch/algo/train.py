@@ -9,9 +9,11 @@ usage: python -m q1physrl_torch.algo.train <run.yml> [--seed N]
 Reads a run config (the native YAML or the RLLib ``params.yml`` format,
 ``algo/config.py:load_run_config``), tracks the reference's stats,
 checkpoints on a new best or every ``checkpoint_every`` iterations, resumes
-from the latest checkpoint in ``checkpoint_dir``, and prints per-iteration
-stats.  Runs on the card unless ``--device cpu`` is given; ``--smoke`` runs
-three iterations of a tiny geometry into a temporary directory.
+from the latest checkpoint in ``checkpoint_dir``, prints per-iteration
+stats, and every ``plot_frequency`` iterations (when above 0) draws the
+wish-angle plot of one episode into the log dir.  Runs on the card unless
+``--device cpu`` is given; ``--smoke`` runs three iterations of a tiny
+geometry into a temporary directory.
 
 Each iteration is ``ppo.rollout`` (one launch of the auto-reset env kernel
 per frame on the card) then ``ppo.learn``; the host loop times the two,
@@ -75,11 +77,6 @@ class Trainer:
     """
 
     def __init__(self, run: RunConfig, device="cuda"):
-        if run.plot_frequency:
-            raise NotImplementedError(
-                "plot_frequency > 0 needs eval_sim (the wish-angle plot), "
-                "which q1physrl_torch has not ported yet; set "
-                "plot_frequency: 0")
         self.device = resolve_device(device)
         # Float32 products in full float32 on the card (TF32 off).
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -113,8 +110,7 @@ class Trainer:
         self.metrics_writer = None
         if self.is_main:
             self.metrics_writer = MetricsWriter(
-                run.log_dir or f"{run.checkpoint_dir}/logs",
-                use_wandb=run.use_wandb,
+                self._log_dir(), use_wandb=run.use_wandb,
                 wandb_config=dataclasses.asdict(run))
 
     def _sync(self):
@@ -165,6 +161,32 @@ class Trainer:
             return fname
         return None
 
+    def record_plot(self, i: int) -> str:
+        """The wish-angle plot of one episode of the current policy
+        (``analyse.eval_sim`` on the trainer's device), saved to the log
+        dir as ``wish_angle_%07d.png`` (and to wandb when enabled); return
+        its path.  The training loop calls it on rank 0 alone."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from .. import analyse
+
+        t0 = time.time()
+        r = analyse.eval_sim(self.ts.policy, self.env_cfg, device=self.device)
+        r.wish_angle_yaw_plot()
+        path = os.path.join(self._log_dir(), f"wish_angle_{i:07d}.png")
+        plt.savefig(path)
+        self.metrics_writer.log_figure(plt, i)
+        plt.close()
+        self._print(f"Took {time.time() - t0:.1f} seconds to record plot "
+                    f"({path})")
+        return path
+
+    def _log_dir(self) -> str:
+        return self.run.log_dir or f"{self.run.checkpoint_dir}/logs"
+
     def _finished(self, i: int) -> bool:
         if (self.run.max_iterations is not None
                 and i >= self.run.max_iterations):
@@ -197,6 +219,9 @@ class Trainer:
             if fname:
                 self._print("Best:", {k: (round(b.val, 2), b.fname)
                                       for k, b in self.best.items()})
+            if (self.is_main and self.run.plot_frequency
+                    and i % self.run.plot_frequency == 0):
+                self.record_plot(i)
             i += 1
         if not saved_final:
             # Final save, so that auto-resume restarts exactly here.

@@ -11,6 +11,10 @@ float64).  That gives two modes from one code path: a float64 "parity" mode
 and the float32 production mode, which the CUDA rollout kernel
 (``ops/csrc/env_rollout.cu``) reproduces operation for operation.
 
+``Inputs`` and ``PlayerState`` also convert to and from the engine log's
+frames (``to_df``/``from_df``; pandas is imported only there) and an
+``(N, 3)`` velocity.
+
 Type promotion: torch treats a 0-dim tensor like a Python scalar, so a
 float64 0-dim ``time_delta`` would not promote float32 operands.  ``apply``
 therefore expands a 0-dim ``time_delta`` to the batch shape, which makes it
@@ -22,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 __all__ = (
@@ -55,6 +60,18 @@ GRAVITY = 800.0
 FLOOR_HEIGHT = 24.03125  # 24 + DIST_EPSILON; exactly representable in binary.
 
 
+def _numpy(x):
+    """A tensor (on any device), array or number as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _tensor(x):
+    """A copy of a column (or array) as a CPU tensor."""
+    return torch.tensor(np.asarray(x))
+
+
 @dataclasses.dataclass
 class Inputs:
     """Per-frame player inputs, as sent over the Quake network layer.
@@ -71,10 +88,35 @@ class Inputs:
     button2: torch.Tensor  # bool: jump held
     time_delta: torch.Tensor | float
 
+    @classmethod
+    def from_df(cls, df):
+        """From a frame with the engine log's column names (CPU tensors)."""
+        return cls(
+            yaw=_tensor(df.yaw), pitch=_tensor(df.pitch),
+            roll=_tensor(df.roll), fmove=_tensor(df.fmove),
+            smove=_tensor(df.smove),
+            button2=_tensor(np.asarray(df.button2) > 0),
+            time_delta=_tensor(df.host_frametime))
+
+    def to_df(self):
+        import pandas as pd
+
+        return pd.DataFrame({
+            "yaw": _numpy(self.yaw), "pitch": _numpy(self.pitch),
+            "roll": _numpy(self.roll), "fmove": _numpy(self.fmove),
+            "smove": _numpy(self.smove), "button2": _numpy(self.button2),
+            "host_frametime": np.broadcast_to(_numpy(self.time_delta),
+                                              np.shape(_numpy(self.yaw))),
+        })
+
 
 @dataclasses.dataclass
 class PlayerState:
-    """Player movement state (SoA)."""
+    """Player movement state (SoA).
+
+    ``vel_x``/``vel_y``/``vel_z`` stand for an ``(N, 3)`` velocity; use
+    :meth:`vel3` / :meth:`from_vel3` to convert.
+    """
 
     z_pos: torch.Tensor
     vel_x: torch.Tensor
@@ -82,6 +124,44 @@ class PlayerState:
     vel_z: torch.Tensor
     on_ground: torch.Tensor  # bool
     jump_released: torch.Tensor  # bool
+
+    def vel3(self):
+        """Velocity as an (N, 3) numpy array (host-side convenience)."""
+        return np.stack([_numpy(self.vel_x), _numpy(self.vel_y),
+                         _numpy(self.vel_z)], axis=-1)
+
+    @classmethod
+    def from_vel3(cls, z_pos, vel, on_ground, jump_released):
+        vel = torch.as_tensor(vel)
+        return cls(z_pos=torch.as_tensor(z_pos), vel_x=vel[..., 0],
+                   vel_y=vel[..., 1], vel_z=vel[..., 2],
+                   on_ground=torch.as_tensor(on_ground),
+                   jump_released=torch.as_tensor(jump_released))
+
+    @classmethod
+    def from_df(cls, df):
+        """From a frame with the engine log's column names (CPU tensors)."""
+        return cls(
+            z_pos=_tensor(df.z), vel_x=_tensor(df.velx),
+            vel_y=_tensor(df.vely), vel_z=_tensor(df.velz),
+            on_ground=_tensor(np.asarray(df.onground) > 0),
+            jump_released=_tensor(np.asarray(df.jumpreleased) > 0))
+
+    def to_df(self):
+        import pandas as pd
+
+        return pd.DataFrame({
+            "z": _numpy(self.z_pos),
+            "velx": _numpy(self.vel_x), "vely": _numpy(self.vel_y),
+            "velz": _numpy(self.vel_z),
+            "onground": _numpy(self.on_ground),
+            "jumpreleased": _numpy(self.jump_released),
+        })
+
+    @classmethod
+    def concatenate(cls, states):
+        return cls(*(torch.cat([getattr(s, f.name) for s in states])
+                     for f in dataclasses.fields(cls)))
 
 
 def angle_vectors(yaw, pitch, roll):

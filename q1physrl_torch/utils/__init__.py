@@ -1,5 +1,6 @@
-"""Utility subsystems: metrics sinks."""
+"""Utility subsystems: metrics sinks and the .dem demo file reader and
+writer."""
 
-from . import metrics_io
+from . import demfile, metrics_io
 
-__all__ = ("metrics_io",)
+__all__ = ("demfile", "metrics_io")

@@ -52,6 +52,12 @@ class MetricsWriter:
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
 
+    def log_figure(self, fig, step: int):
+        """Log a matplotlib figure (or ``pyplot``) to wandb as ``chart``;
+        nothing without wandb."""
+        if self._wandb is not None:
+            self._wandb.log({"chart": fig}, step=step)
+
     def close(self):
         self._jsonl.close()
         if self._tb is not None:

@@ -1,9 +1,10 @@
 """The CUDA rollout kernels on the card: each held against its plain
 version, their argument checks and launch counts, the kernels' Philox
 against its plain version and curand's, scoring on the card against the
-CPU, a training iteration on the card; and for data-parallel training, the
-generator's bits in two processes and the sharded rollouts of two gloo
-ranks on one card.
+CPU, eval_sim and the counterfactual sweep on the card, a training
+iteration on the card; and for data-parallel training, the generator's
+bits in two processes and the sharded rollouts of two gloo ranks on one
+card.
 
 These tests need an NVIDIA card and nvcc; without them they skip (the
 kernels have no CPU mode).  Run them on the card with
@@ -24,7 +25,8 @@ from q1physrl_torch.models import Policy, import_policy_params
 from q1physrl_torch.ops import env_rollout
 
 from _torch_common import run_ranks
-from chip_smoke import any_latches, probe_configs, rollout_inputs
+from chip_smoke import (any_latches, probe_configs, replay_eval_sim,
+                        rollout_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -239,6 +241,43 @@ def test_deterministic_score_on_card_matches_cpu(cuda):
             policy, RUN4, num_episodes=2, deterministic=True,
             device=device)["mean"]
     assert abs(scores["cuda"] - scores["cpu"]) <= 10.0, scores
+
+
+def _tpu_pb_policy(device):
+    policy = Policy(RUN4, device=device)
+    policy.load_state_dict(import_policy_params(CHECKPOINT))
+    return policy
+
+
+def test_eval_sim_on_card_launches_once_per_frame(cuda):
+    """eval_sim launches kernel #1 once per frame, and the decoded yaw it
+    records equals, to the bit, the yaw the kernel writes when the recorded
+    actions are replayed through it (the replay meets the recorded states
+    and rewards to the bit, and each of its launches equals the plain
+    version's to the bit)."""
+    before = env_rollout.rollout_actions.launches
+    result = analyse.eval_sim(_tpu_pb_policy(cuda), RUN4, deterministic=True,
+                              max_steps=60, device=cuda)
+    assert env_rollout.rollout_actions.launches == before + 60
+    assert len(result.reward) == 60 and result.device == str(cuda)
+    kernel_yaw, replayed, err = replay_eval_sim(RUN4, result, 0, cuda)
+    assert replayed and err == 0.0
+    np.testing.assert_array_equal(kernel_yaw, result.yaw)
+
+
+def test_hypothetical_delta_speeds_card_matches_cpu(cuda):
+    """The sweep on the card against the CPU's on one trajectory, at
+    chip_smoke.SWEEP_ATOL (an ulp or two of sin/cos and hypot between the
+    libraries, on speeds near 300-700 ups)."""
+    from chip_smoke import SWEEP_ATOL
+
+    result = analyse.eval_sim(_tpu_pb_policy(cuda), RUN4, deterministic=True,
+                              max_steps=200, device=cuda)
+    card = result.hypothetical_delta_speeds()
+    cpu = dataclasses.replace(result,
+                              device="cpu").hypothetical_delta_speeds()
+    assert card.shape == cpu.shape == (360, 200)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=SWEEP_ATOL)
 
 
 def test_two_processes_draw_the_same_bits_on_one_card(cuda, tmp_path):

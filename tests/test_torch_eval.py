@@ -65,6 +65,28 @@ def test_stochastic_score_agrees_with_jax_in_distribution():
     assert got["std"] < 30.0
 
 
+def test_stochastic_spread_matches_jax():
+    """The spread of the 512-episode instrument is seed noise, in both
+    packages alike: the pooled std of seeds 0 and 1 (about 10 in each
+    package, set by a few low episodes) agrees within [0.7, 1.4]x.  Over
+    seeds 0-3 the two packages' stds ranged 9.8-11.7 and 9.5-13.5 (PERF.md
+    §7), so the band leaves room for a seed's tail and catches a sampler
+    whose spread is off by half."""
+    cfg = tload(RUN4).env
+    policy = _port_policy(cfg)
+    jparams = jmodels.import_policy_params(CHECKPOINT)
+    got, want = [], []
+    for seed in (0, 1):
+        got.append(tanalyse.eval_zero_start(policy, cfg, num_episodes=512,
+                                            seed=seed, device="cpu"))
+        want.append(janalyse.eval_zero_start(jparams, jload(RUN4).env,
+                                             num_episodes=512, seed=seed))
+    pooled = lambda runs: (sum(r["std"] ** 2 for r in runs) / len(runs)) ** .5
+    ratio = pooled(got) / pooled(want)
+    assert 0.7 <= ratio <= 1.4, (got, want)
+    assert all(abs(g["mean"] - w["mean"]) <= 6.0 for g, w in zip(got, want))
+
+
 def test_eval_is_seeded():
     cfg = tload(RUN4).env
     policy = _port_policy(cfg)
@@ -119,9 +141,12 @@ def test_cli_runs_on_cpu():
 
 
 def test_imports_with_jax_blocked():
+    """Every module imports with JAX and the JAX package blocked, and with
+    matplotlib and pandas missing (the card's machine has neither)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'q1physrl_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'q1physrl_tpu',\n"
+        "          'matplotlib', 'pandas'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, q1physrl_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -132,14 +157,14 @@ def test_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, env=_clean_env(), timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) >= 14  # every module of the port was imported
+    assert int(proc.stdout) >= 28  # every module of the port was imported
 
 
 def test_port_never_names_jax():
     pattern = re.compile(r"\b(jax|jaxlib|flax|optax)\b|q1physrl_tpu")
     files = [p for p in (ROOT / "q1physrl_torch").rglob("*")
              if p.is_file() and p.suffix in (".py", ".cu", ".cuh")]
-    assert len(files) >= 14
+    assert len(files) >= 32
     hits = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
             for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)

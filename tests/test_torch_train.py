@@ -762,11 +762,46 @@ def test_export_reads_back_in_both_packages(tmp_path):
 
 
 def test_trainer_defaults_to_cuda_and_refuses_plots(tmp_path):
+    """The Trainer runs on the card unless told otherwise.  It refused
+    plot_frequency > 0 until eval_sim was ported; now it takes it (the
+    plots themselves: test_torch_analyse.py)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(_smoke_run(tmp_path))
-    with pytest.raises(NotImplementedError, match="eval_sim"):
-        Trainer(_smoke_run(tmp_path, plot_frequency=10), device="cpu")
+    trainer = Trainer(_smoke_run(tmp_path, plot_frequency=10), device="cpu")
+    assert trainer.run.plot_frequency == 10
+
+
+@pytest.mark.parametrize("saved_kind", ["cpu", "cuda"])
+def test_restore_names_both_generator_kinds(tmp_path, saved_kind):
+    """A CPU generator's state (MT19937, about 5 KB) and a CUDA one's (16
+    bytes) cannot stand in for each other: restoring across kinds raises a
+    ValueError that names both, rather than reseeding."""
+    cfg = dataclasses.replace(TConfig.get_default(), num_envs=None)
+    ppo = TPPOConfig(**SMOKE_PPO)
+    ts = tppo.init_train_state(0, cfg, ppo, "cpu")
+    path = tckpt.save_checkpoint(str(tmp_path), ts, 1)
+    live_kind = "cuda" if saved_kind == "cpu" else "cpu"
+    if saved_kind == "cuda":  # the state a CUDA generator stores
+        state_file = os.path.join(path, tckpt.STATE_FILE)
+        tree = torch.load(state_file, weights_only=True)
+        tree["generator"] = torch.zeros(16, dtype=torch.uint8)
+        torch.save(tree, state_file)
+        target = ts
+    else:  # a live CUDA generator's state and kind
+        cuda_like = type("CudaGenerator", (), {
+            "device": torch.device("cuda"),
+            "get_state": lambda self: torch.zeros(16, dtype=torch.uint8)})()
+        target = dataclasses.replace(ts, generator=cuda_like)
+    message = (f"saved from a {saved_kind} generator, restoring into a "
+               f"{live_kind} one")
+    with pytest.raises(ValueError, match=message):
+        tckpt.restore_checkpoint(path, target)
+    if saved_kind == "cpu":  # the same kind restores
+        restored = tckpt.restore_checkpoint(
+            path, tppo.init_train_state(1, cfg, ppo, "cpu"))
+        assert torch.equal(restored.generator.get_state(),
+                           ts.generator.get_state())
 
 
 def test_train_cli_smoke_on_cpu():

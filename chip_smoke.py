@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
                rollout_actions at the scoring shape (N=512, T=1), the
                eval_sim shape (N=1, T=1) and N=65,536, T=128;
                rollout_actions_autoreset at the training shape (N=8,192,
-               T=1); rollout_random at N=65,536, T=128 and
+               T=1), each of these also in the form the frame loops launch
+               (``out=``: the state written over itself into given
+               buffers); rollout_random at N=65,536, T=128 and
                the bench shape (N=2^20, T=720), and also at an odd T
                (N=4,096, T=67), and each kernel on run4 from a state whose
                key latches hold any int32 (ANY_LATCHES).  rollout_random's
@@ -29,7 +31,14 @@ Phases, each printing one JSON line:
 4. scoring   — runs the evaluate CLI on the shipped ``tpu_pb`` checkpoint under
                ``configs/run4.yml`` (512 stochastic + 2 deterministic zero-start
                episodes), checks one kernel launch per env step and the scores
-               against ``data/checkpoints/tpu_pb/eval.json``.
+               against ``data/checkpoints/tpu_pb/eval.json``.  The CLI's loop
+               is a frame captured as a CUDA graph and replayed once per
+               frame; beside it (``scoring_loops``) the eager driver runs on
+               the card and the graphed returns are held to its, to the bit,
+               in both modes, with ``eager_s``, ``graphed_s``, ``capture_s``,
+               ``frame_ms`` (the card's time per replayed frame) and
+               ``kernels_per_frame`` (torch.profiler).  Phases 4a, 4b and 5
+               print the same for their loops.
 4a. analysis — ``analyse.eval_sim`` of ``tpu_pb``, deterministic, under run4 at
                full width on the card: one rollout_actions launch per frame;
                the decoded yaw of each frame equal, to the bit, to the yaw
@@ -40,18 +49,26 @@ Phases, each printing one JSON line:
                eval.json's deterministic score and against the same
                eval_sim on the CPU; then the
                counterfactual sweep (``hypothetical_delta_speeds``, 360 x T
-               states) on the card against the CPU.
+               states) on the card against the CPU; the graphed eval_sim
+               held to the eager driver on the card, every recorded field to
+               the bit.
 4b. scoring_r5 — the evaluate CLI on round 5's winner,
                ``data/checkpoints/repl_r5/best_member_02_rllib`` given as a
                directory (512 + 2 episodes, run4): one launch per env step,
                the stochastic score against ``repl_r5/eval_summary.json``,
-               the deterministic one against the JAX package's on the CPU.
+               the deterministic one against the JAX package's on the CPU;
+               its loop reuses phase 4's capture, the weights copied in.
 5. training  — the port's Trainer on ``configs/run_tpu_e3.yml`` (8,192 envs x
                96 frames, minibatch 128, 3 epochs, full-width towers) for one
                iteration into a temporary directory: one launch of
                rollout_actions_autoreset per frame, finite metrics, params
                moved, a checkpoint written that restores; seconds per
-               iteration split into rollout and learning.
+               iteration split into rollout and learning.  First the
+               rollout at that geometry from one start through
+               ``ppo.rollout``, graphed twice (the capture's run, then a
+               replay of every frame on the kept loop) and eager on the
+               card: trajectory, state, statistics, bootstrap value and
+               generator to the bit.
 6. bench_env — the port bench's env metric: rollout_random at N=2^20, T=720.
 7. reference — one process's Trainer at ``configs/params_tpu.yml`` (8,192
                envs x 96 frames, minibatch 8,192, full-width towers) for
@@ -68,9 +85,12 @@ Phases, each printing one JSON line:
                kernel on the whole batch (sharded_rollout_random against
                rollout_random on the shard with seed + rank * 100003, the
                done count summed exactly) at the probe shape and its main
-               path's shape, then timed alone, beside the all-reduce.  Then
+               path's shape (the first two also in the ``out=`` form),
+               then timed alone, beside the all-reduce.  Then
                the main paths across the two ranks: the evaluate CLI
-               (sharded_rollout_actions), the bench's env metric
+               (sharded_rollout_actions; then each rank's graphed scoring
+               loop and its global-mode rollout held to the eager driver to
+               the bit), the bench's env metric
                (sharded_rollout_random), and the Trainer
                (sharded_rollout_actions_autoreset, one launch per frame per
                rank) at params_tpu.yml: one epoch in global mode, within
@@ -442,12 +462,10 @@ def _bound_autoreset(state, ka, ya, dones):
     """As :func:`_bound` for rollout_actions_autoreset: all 11 leaves, and
     the five reset uniforms of each env-step that ended an episode (the
     kernel reads no others)."""
-    from q1physrl_torch.ops.env_rollout import _all_leaves
-
     t, k, n = ka.shape
     step_bytes = (_nbytes((ka, ya)) + t * n * (4 + 1)
                   + int(dones.sum()) * 5 * 4)
-    return _least_time(2 * _nbytes(_all_leaves(state)) + step_bytes,
+    return _least_time(2 * _nbytes(state.leaves()) + step_bytes,
                        OPS_PER_ENV_STEP * n * t)
 
 
@@ -456,14 +474,14 @@ def _bound_random(state, t, done_count):
     the per-env reward sum and done count written; its float operations
     and Philox's integer operations: one call per FRAMES_PER_DRAW frames of
     each env, and one per reset of this run."""
-    from q1physrl_torch.ops.env_rollout import FRAMES_PER_DRAW, _all_leaves
+    from q1physrl_torch.ops.env_rollout import FRAMES_PER_DRAW
 
     n = state.num_envs
     calls = -(-t // FRAMES_PER_DRAW)
     ops = ((OPS_PER_ENV_STEP + OPS_PER_RANDOM_FRAME) * n * t
            + PHILOX_OPS * n * calls
            + OPS_PER_RANDOM_RESET * int(done_count))
-    return _least_time(2 * _nbytes(_all_leaves(state)) + n * (4 + 4), ops)
+    return _least_time(2 * _nbytes(state.leaves()) + n * (4 + 4), ops)
 
 
 def _reset_uniforms(n, steps, seed, device):
@@ -478,6 +496,23 @@ def _timed(kernel, plain, reps, plain_reps):
     return {"ms": _time_ms(kernel, reps),
             "graph_ms": _graph_ms(kernel, min(reps, 100)),
             "plain_ms": _time_ms(plain, plain_reps)}
+
+
+def _in_place(fn, cfg, state, *inputs):
+    """``fn`` called as the frame loops call it: on a copy of ``state`` that
+    is its own output, the rewards and dones written into buffers given to
+    it.  ``inputs``: the keys, yaw and (for the auto-reset forms) reset
+    uniforms.  Returns (state, rewards, dones)."""
+    import torch
+
+    t, n = inputs[1].shape
+    device = inputs[1].device
+    mine = state.clone()
+    out = (mine, torch.empty((t, n), dtype=torch.float32, device=device),
+           torch.empty((t, n), dtype=torch.bool, device=device))
+    if fn(cfg, mine, *inputs, out=out) is not out:
+        raise AssertionError(f"{fn.__name__}: out= not returned")
+    return out
 
 
 def _phase_rollout_actions(run, device):
@@ -501,16 +536,22 @@ def _phase_rollout_actions(run, device):
     _emit({"phase": "kernel", "kernel": "rollout_actions",
            "config": "run4 any latches", "n": n, "t": t, "max_abs_err": err})
 
-    # The timed shapes are compared too: the scoring shape is the one the
-    # main path launches, and its error is the one the kernels line reports.
+    # The timed shapes are compared too, in both launch forms: a new result,
+    # and the state written over itself into given buffers, as the frame
+    # loops launch it.  The scoring shape is the one the main path
+    # launches, and its error is the one the kernels line reports.
     timings = {}
     for shape, (n, t, reps, plain_reps) in ACTIONS_SHAPES.items():
         state, ka, ya = rollout_inputs(run.env, n, t, 100, device)
         kernel = lambda: rollout_actions(run.env, state, ka, ya)
         plain = lambda: rollout_actions_plain(run.env, state, ka, ya)
-        err = _compare(f"run4 {shape} shape", kernel(), plain())
-        max_err = max(max_err, err)
-        timings[shape] = {"n": n, "t": t, "max_abs_err": err,
+        want = plain()
+        err = _compare(f"run4 {shape} shape", kernel(), want)
+        in_place = _compare(f"run4 {shape} shape, in place", _in_place(
+            rollout_actions, run.env, state, ka, ya), want)
+        max_err = max(max_err, err, in_place)
+        timings[shape] = {"n": n, "t": t, "max_abs_err": max(err, in_place),
+                          "max_abs_err_in_place": in_place,
                           **_timed(kernel, plain, reps, plain_reps),
                           **_bound(state, ka, ya)}
         _emit({"phase": "kernel_timing", "kernel": "rollout_actions",
@@ -547,7 +588,7 @@ def _phase_autoreset(run, device):
            "config": "run4 any latches", "n": n, "t": t, "max_abs_err": err})
 
     # The training shape: one frame of 8,192 envs, as the PPO rollout
-    # launches it.
+    # launches it (both forms, as above).
     timings = {}
     for shape, (n, t, reps, plain_reps) in AUTORESET_SHAPES.items():
         state, ka, ya = rollout_inputs(run.env, n, t, 101, device)
@@ -557,8 +598,11 @@ def _phase_autoreset(run, device):
                                                         ya, ru)
         want = plain()
         err = _compare(f"run4 {shape} shape", kernel(), want)
-        max_err = max(max_err, err)
-        timings[shape] = {"n": n, "t": t, "max_abs_err": err,
+        in_place = _compare(f"run4 {shape} shape, in place", _in_place(
+            rollout_actions_autoreset, run.env, state, ka, ya, ru), want)
+        max_err = max(max_err, err, in_place)
+        timings[shape] = {"n": n, "t": t, "max_abs_err": max(err, in_place),
+                          "max_abs_err_in_place": in_place,
                           "dones": int(want[2].sum()),
                           **_timed(kernel, plain, reps, plain_reps),
                           **_bound_autoreset(state, ka, ya, want[2])}
@@ -665,6 +709,9 @@ def _phase_training(device):
     from q1physrl_torch.algo.config import load_run_config
 
     iterations = TRAIN_ITERATIONS
+    rollout = {"phase": "training_rollout",
+               **_rollout_loops(device, TRAIN_YAML)}
+    _emit(rollout)
     with tempfile.TemporaryDirectory(prefix="q1_chip_smoke_") as tmp:
         run = dataclasses.replace(
             load_run_config(str(TRAIN_YAML)), checkpoint_dir=tmp,
@@ -690,7 +737,7 @@ def _phase_training(device):
               "launches": launches, "per_iteration": per_iter,
               "checkpoint": latest,
               "checkpoint_restores": trained["restores"],
-              "params_moved": trained["moved"]}
+              "params_moved": trained["moved"], "rollout_loops": rollout}
     _emit(result)
     if len(records) != iterations:
         raise RuntimeError("training: missing iterations")
@@ -709,6 +756,195 @@ def _seconds(fn, device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out, time.perf_counter() - t0
+
+
+def _captures():
+    from q1physrl_torch.utils import cuda_graph
+
+    return dict(cuda_graph.counters)
+
+
+def _capture_seconds(before):
+    """Seconds spent capturing frame graphs since ``before``
+    (:func:`_captures`), and how many were captured."""
+    now = _captures()
+    return {"capture_s": now["capture_seconds"] - before["capture_seconds"],
+            "captures": now["captures"] - before["captures"]}
+
+
+def _device_profile(fn, calls, top=8):
+    """What the card ran per call of ``fn``, from torch.profiler over
+    ``calls`` calls: the operations (kernels, copies and fills), their
+    summed device milliseconds, and the ``top`` names by device time with
+    their microseconds and counts per call."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us, count = collections.Counter(), collections.Counter()
+    for e in events:
+        us[e.name[:80]] += e.time_range.elapsed_us()
+        count[e.name[:80]] += 1
+    return {"operations": len(events) / calls,
+            "device_ms": sum(us.values()) / calls / 1e3,
+            "top": [[name, t / calls, count[name] / calls]
+                    for name, t in us.most_common(top)]}
+
+
+def _frame_profile(loop, frames):
+    """What a replayed frame of ``loop`` (a ``utils.cuda_graph.FrameLoop``
+    whose frame is captured; ``frames`` per run) costs: ``frame_ms``, the
+    card's time per replay (CUDA events over a run's replays back to back),
+    the operations per frame the profiler sees in replays and in one eager
+    frame, the replay's summed device time (``frame_busy_ms``: the rest of
+    ``frame_ms`` is the gaps between its nodes) and its costliest kernels
+    (``frame_top``: name, device microseconds and count per frame).  It
+    replays the graph itself, so the launch counts do not move, and leaves
+    the loop's buffers advanced (a loop that records rewinds its index
+    first, staying inside its records): the next run starts them anew."""
+    import torch
+
+    graph = loop.graph.graph
+    rewind = getattr(loop, "idx", None)
+    rewind = rewind.zero_ if rewind is not None else (lambda: None)
+    reps = min(frames, 200)
+    with torch.inference_mode():  # the loops' buffers may be inference
+        rewind()
+        frame_ms = _time_ms(graph.replay, reps - 3)
+        rewind()
+        replayed = _device_profile(graph.replay, 5)
+        rewind()
+        eager = _device_profile(loop.frame, 1)
+    return {"frame_ms": frame_ms, "kernels_per_frame": replayed["operations"],
+            "kernels_per_eager_frame": eager["operations"],
+            "frame_busy_ms": replayed["device_ms"],
+            "frame_top": replayed["top"]}
+
+
+def _cached_loop(name, size):
+    """The captured loop that ``analyse`` keeps for the loop ``name`` on
+    ``size`` envs (or frames)."""
+    from q1physrl_torch import analyse
+
+    (loop,) = [v for k, v in analyse._LOOPS.loops.items()
+               if k[0] == name and k[4] == size]
+    return loop
+
+
+def _same_returns(name, graphed, eager):
+    if not np.array_equal(graphed, eager):
+        raise AssertionError(f"{name}: the graphed loop's returns differ "
+                             f"from the eager driver's (largest difference "
+                             f"{float(np.abs(graphed - eager).max())})")
+
+
+def _scoring_loops(name, checkpoint, device, steps, cli_s, captures):
+    """Beside a scoring phase's CLI run (graphed): the eager driver on the
+    card for both of its modes, held to the graphed returns to the bit, the
+    graphed loop timed again (its capture reused), and the frame's cost."""
+    from q1physrl_torch import analyse
+    from q1physrl_torch.algo.evaluate import resolve_checkpoint
+    from q1physrl_torch.models import Policy, import_policy_params
+
+    run_env = _run4_env()
+    policy = Policy(run_env, device=device)
+    policy.load_state_dict(import_policy_params(
+        resolve_checkpoint(str(checkpoint))))
+    out = {"phase": f"{name}_loops", "frames": steps, "cli_s": cli_s,
+           **captures}
+    for mode, n, deterministic in (("stochastic", 512, False),
+                                   ("deterministic", 2, True)):
+        run = lambda driver: analyse.zero_start_returns(
+            policy, run_env, num_episodes=n, deterministic=deterministic,
+            device=device, driver=driver)
+        graphed, graphed_s = _seconds(lambda: run("graph"), device)
+        eager, eager_s = _seconds(lambda: run("eager"), device)
+        _same_returns(f"{name} {mode}", graphed, eager)
+        out[mode] = {"n": n, "eager_s": eager_s, "graphed_s": graphed_s,
+                     "graphed_equals_eager_bitwise": True}
+    out.update(_frame_profile(_cached_loop("zero_start", 512), steps))
+    _emit(out)
+    return out
+
+
+def _run4_env():
+    from q1physrl_torch.algo.config import load_run_config
+
+    return load_run_config(str(RUN_YAML)).env
+
+
+def _rollout_loops(device, run_yaml, shard=None):
+    """The PPO rollout at ``run_yaml``'s geometry through ``ppo.rollout``,
+    as the Trainer, spmd and ``train_iter`` call it: graphed from one start
+    twice (the run that captures, then one that replays every frame on the
+    kept loop, the generator set back in between as spmd reseeds its rank
+    generator), and eager from the same start on the card.  Trajectory,
+    final state, episode statistics, bootstrap value and the generator's
+    state are held equal to the bit; returns the seconds of each run, the
+    capture's, and the frame's cost.  ``shard``: this rank's envs (global
+    mode)."""
+    import torch
+
+    from q1physrl_torch.algo import ppo
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.parallel.mesh import shard_env_axis
+
+    run = load_run_config(str(run_yaml))
+    cfg = dataclasses.replace(run.env, num_envs=None)
+
+    def start():
+        ts = ppo.init_train_state(run.seed, cfg, run.ppo, device)
+        state, stats = ts.env_state, ts.stats
+        if shard is not None:
+            state, stats = (shard_env_axis(state, shard),
+                            shard_env_axis(stats, shard))
+        return ts, state, stats
+
+    def rollout(ts, state, stats, driver):
+        out = ppo.rollout(cfg, run.ppo, ts.policy, state, stats,
+                          ts.generator, shard, driver=driver)
+        return out + (ts.generator.get_state(),)
+
+    ts, state, stats = start()
+    seed_state = ts.generator.get_state()
+    runs = {}
+    for name in ("first", "graphed"):
+        ts.generator.set_state(seed_state)
+        before = _captures()
+        out, seconds = _seconds(lambda: rollout(ts, state, stats, "graph"),
+                                device)
+        runs[name] = (out, seconds, _capture_seconds(before))
+    loop = next(reversed(ppo._LOOPS.loops.values()))
+    eager, eager_s = _seconds(lambda: rollout(*start(), "eager"), device)
+    for name, (out, _, _) in runs.items():
+        (s, st, tr, b, g), (s0, st0, tr0, b0, g0) = out, eager
+        same = (all(torch.equal(x, y) for x, y in zip(s.leaves(),
+                                                      s0.leaves()))
+                and all(torch.equal(getattr(st, f.name), getattr(st0, f.name))
+                        for f in dataclasses.fields(st0))
+                and all(torch.equal(x, y) for x, y in zip(tr, tr0))
+                and torch.equal(b, b0) and torch.equal(g, g0))
+        if not same:
+            raise AssertionError(f"rollout: the graphed loop's {name} run "
+                                 f"differs from the eager driver")
+    if runs["graphed"][2]["captures"]:
+        raise AssertionError("rollout: a second call with the same policy "
+                             "and generator captured again")
+    return {"config": str(Path(run_yaml).relative_to(ROOT)),
+            "n": state.num_envs, "frames": run.ppo.rollout_length,
+            "eager_s": eager_s, "first_s": runs["first"][1],
+            "graphed_s": runs["graphed"][1], **runs["first"][2],
+            "graphed_equals_eager_bitwise": True,
+            **_frame_profile(loop, run.ppo.rollout_length)}
 
 
 def _phase_analysis(run, device, steps):
@@ -731,9 +967,27 @@ def _phase_analysis(run, device, steps):
     sim = lambda dev: analyse.eval_sim(policies[dev.type], run.env,
                                        deterministic=True, device=dev)
     rollout_actions.launches = 0
+    captures = _captures()
     card, card_s = _seconds(lambda: sim(device), device)
     launches = rollout_actions.launches
+    captured = _capture_seconds(captures)
     host, host_s = _seconds(lambda: sim(cpu), cpu)
+    # The graphed loop again (its capture reused) and the eager driver, on
+    # the card: every recorded field to the bit.
+    again, graphed_s = _seconds(lambda: sim(device), device)
+    eager, eager_s = _seconds(lambda: analyse.eval_sim(
+        policies[device.type], run.env, deterministic=True, device=device,
+        driver="eager"), device)
+    loops = {"phase": "analysis_loops", "frames": steps,
+             "first_s": card_s, **captured, "graphed_s": graphed_s,
+             "eager_s": eager_s,
+             "graphed_equals_eager_bitwise": _same_sim(again, eager)
+             and _same_sim(card, eager),
+             **_frame_profile(_cached_loop("sim", steps), steps)}
+    _emit(loops)
+    if not loops["graphed_equals_eager_bitwise"]:
+        raise AssertionError("analysis: the graphed eval_sim differs from "
+                             "the eager driver's")
 
     kernel_yaw, replayed, replay_err = replay_eval_sim(run.env, card, 0,
                                                       device)
@@ -773,6 +1027,14 @@ def _phase_analysis(run, device, steps):
     return launches, replay_err
 
 
+def _same_sim(a, b):
+    """Whether two ``EvalSimResult``s hold the same record, to the bit."""
+    fields = lambda r: [getattr(r.player_state, f.name) for f in
+                        dataclasses.fields(r.player_state)] + [
+        r.action, r.obs, r.reward, r.yaw, r.smove, r.fmove, r.jump]
+    return all(np.array_equal(x, y) for x, y in zip(fields(a), fields(b)))
+
+
 def _phase_scoring_r5(device, steps):
     """4b: the evaluate CLI on round 5's winner, given as a directory.
     Returns the launches of rollout_actions."""
@@ -780,10 +1042,13 @@ def _phase_scoring_r5(device, steps):
     from q1physrl_torch.ops.env_rollout import rollout_actions
 
     rollout_actions.launches = 0
+    captures = _captures()
     (sto, det), seconds = _seconds(lambda: evaluate.main(
         [str(RUN_YAML), str(R5_CHECKPOINT), "512", "--device", str(device)]),
         device)
     launches = rollout_actions.launches
+    _scoring_loops("scoring_r5", R5_CHECKPOINT, device, steps, seconds,
+                   _capture_seconds(captures))
     _emit({"phase": "scoring_r5",
            "checkpoint": str(R5_CHECKPOINT.relative_to(ROOT)),
            "seconds": seconds, "launches": launches, "stochastic": sto,
@@ -957,8 +1222,15 @@ def _rank_nccl_w1(device, ckpt_root):
         "sharded_rollout_actions": (sr.sharded_rollout_actions(cfg, state, ka,
                                                                ya),
                                     er.rollout_actions(cfg, state, ka, ya)),
+        "sharded_rollout_actions in place": (
+            _in_place(sr.sharded_rollout_actions, cfg, state, ka, ya),
+            er.rollout_actions(cfg, state, ka, ya)),
         "sharded_rollout_actions_autoreset": (
             sr.sharded_rollout_actions_autoreset(cfg, state, ka, ya, ru),
+            er.rollout_actions_autoreset(cfg, state, ka, ya, ru)),
+        "sharded_rollout_actions_autoreset in place": (
+            _in_place(sr.sharded_rollout_actions_autoreset, cfg, state, ka,
+                      ya, ru),
             er.rollout_actions_autoreset(cfg, state, ka, ya, ru)),
         "sharded_rollout_random": (sr.sharded_rollout_random(cfg, state, t,
                                                              seed=9),
@@ -1038,23 +1310,29 @@ def _rank_sharded_kernels(run, device):
             local = shard_env_axis(state, shard)
             lka, lya, lru = shard.take(ka), shard.take(ya), shard.take(ru)
             if autoreset:
-                sharded = lambda: sr.sharded_rollout_actions_autoreset(
-                    cfg, local, lka, lya, lru)
+                fn, inputs = sr.sharded_rollout_actions_autoreset, (lka, lya,
+                                                                    lru)
                 plain = lambda: er.rollout_actions_autoreset_plain(
-                    cfg, local, lka, lya, lru)
+                    cfg, local, *inputs)
                 want = er.rollout_actions_autoreset(cfg, state, ka, ya, ru)
                 dones = want[2]
             else:
-                sharded = lambda: sr.sharded_rollout_actions(cfg, local, lka,
-                                                             lya)
-                plain = lambda: er.rollout_actions_plain(cfg, local, lka, lya)
+                fn, inputs = sr.sharded_rollout_actions, (lka, lya)
+                plain = lambda: er.rollout_actions_plain(cfg, local, *inputs)
                 want = er.rollout_actions(cfg, state, ka, ya)
-            s, r, d = sharded()
-            got = (unshard_env_axis(s, shard),
-                   distributed.gather_env_axis(r, shard),
-                   distributed.gather_env_axis(d, shard))
-            err = _compare(f"{name} {shape}", got, want)
-            checks[shape] = {"n": n, "t": t, "max_abs_err": err,
+            sharded = lambda: fn(cfg, local, *inputs)
+            in_place = lambda: _in_place(fn, cfg, local, *inputs)
+            errs = {}
+            # A new result, and the form the frame loops launch: the state
+            # written over itself into given buffers.
+            for form, launch in (("", sharded), (" in place", in_place)):
+                s, r, d = launch()
+                got = (unshard_env_axis(s, shard),
+                       distributed.gather_env_axis(r, shard),
+                       distributed.gather_env_axis(d, shard))
+                errs[form] = _compare(f"{name} {shape}{form}", got, want)
+            checks[shape] = {"n": n, "t": t, "max_abs_err": max(errs.values()),
+                             "max_abs_err_in_place": errs[" in place"],
                              "dones": int(want[2].sum())}
         # Timed: the last pass's calls, at the main path's shape.
         bound = (_bound_autoreset(local, lka, lya, shard.take(dones))
@@ -1104,6 +1382,33 @@ def _rank_sharded_kernels(run, device):
     return out
 
 
+def _rank_loops(device):
+    """The rank's scoring loop (512 episodes, sharded) and its rollout in
+    global mode at params_tpu.yml, each graphed against the eager driver to
+    the bit."""
+    from q1physrl_torch import analyse
+    from q1physrl_torch.models import Policy, import_policy_params
+    from q1physrl_torch.parallel.mesh import env_shard
+
+    run_env = _run4_env()
+    policy = Policy(run_env, device=device)
+    policy.load_state_dict(import_policy_params(str(CHECKPOINT)))
+    shard = env_shard(512)
+    run = lambda driver: analyse.zero_start_returns(
+        policy, run_env, num_episodes=512, device=device, shard=shard,
+        driver=driver)
+    graphed, graphed_s = _seconds(lambda: run("graph"), device)
+    eager, eager_s = _seconds(lambda: run("eager"), device)
+    _same_returns("two-rank scoring", graphed, eager)
+    from q1physrl_torch.algo.config import load_run_config
+
+    num_envs = load_run_config(str(PARAMS_YAML)).ppo.num_envs
+    rollout = _rollout_loops(device, PARAMS_YAML, env_shard(num_envs))
+    return {"scoring": {"eager_s": eager_s, "graphed_s": graphed_s,
+                        "graphed_equals_eager_bitwise": True},
+            "rollout": rollout}
+
+
 def _rank_gloo(device, ckpt_root):
     """The sharded kernels, then the main paths across the ranks."""
     from q1physrl_torch import bench
@@ -1120,6 +1425,7 @@ def _rank_gloo(device, ckpt_root):
                               "--device", str(device)])
     out["scoring"] = {"stochastic": sto, "deterministic": det,
                       "launches": sr.sharded_rollout_actions.launches}
+    out["loops"] = _rank_loops(device)
 
     sr.sharded_rollout_random.launches = 0
     rate = bench.bench_env_kernel(**BENCH_ENV, device=device,
@@ -1233,6 +1539,8 @@ def _phase_data_parallel(device, scores, steps):
                ranks[0]["scoring"]["stochastic"]["mean"] == scores[0]
                and ranks[0]["scoring"]["deterministic"]["mean"] == scores[1]),
            "launches_per_rank": [r["scoring"]["launches"] for r in ranks]})
+    _emit({"phase": "ranks_loops", "world": WORLD,
+           "per_rank": [r["loops"] for r in ranks]})
     _emit({"phase": "ranks_bench_env", "world": WORLD, **BENCH_ENV,
            "env_steps_per_sec": ranks[0]["bench_env"]["env_steps_per_sec"],
            "launches_per_rank": [r["bench_env"]["launches"] for r in ranks]})
@@ -1366,12 +1674,15 @@ def main(device=None) -> int:
     # 4. scoring through the evaluate CLI
     steps = int(np.ceil(run.env.time_limit / run.env.time_delta)) + 2
     rollout_actions.launches = 0
+    captures = _captures()
     t0 = time.perf_counter()
     sto, det = evaluate.main([str(RUN_YAML), str(CHECKPOINT), "512",
                               "--device", str(device)])
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     actions_launches = rollout_actions.launches
+    scoring_loops = _scoring_loops("scoring", CHECKPOINT, device, steps,
+                                   score_s, _capture_seconds(captures))
     _emit({"phase": "scoring", "seconds": score_s, "env_steps_per_episode":
            steps, "launches": actions_launches, "stochastic": sto,
            "deterministic": det["mean"]})
@@ -1426,10 +1737,19 @@ def main(device=None) -> int:
     actions_entry["launches_by_path"] = {"scoring": actions_launches,
                                          "analysis": analysis_launches,
                                          "scoring_r5": r5_launches}
+    # The frame that launches each kernel on its main path, replayed from
+    # its CUDA graph: its time on the card and the capture's seconds.
+    actions_entry.update(frame_ms=scoring_loops["frame_ms"],
+                         capture_s=scoring_loops["capture_s"])
+    autoreset_entry = entry("rollout_actions_autoreset", 248,
+                            training["launches"], autoreset_t["training"],
+                            autoreset_err, autoreset_t)
+    autoreset_entry.update(
+        frame_ms=training["rollout_loops"]["frame_ms"],
+        capture_s=training["rollout_loops"]["capture_s"])
     _emit({"kernels": [
         actions_entry,
-        entry("rollout_actions_autoreset", 248, training["launches"],
-              autoreset_t["training"], autoreset_err, autoreset_t),
+        autoreset_entry,
         entry("rollout_random", 343, random_launches, random_t["bench"],
               random_err, random_t),
         *sharded_entries,

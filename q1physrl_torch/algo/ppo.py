@@ -2,8 +2,9 @@
 
 One iteration (:func:`train_iter`) is
 
-    rollout (a Python loop over T frames: the policy, then one launch of the
-             auto-reset env kernel, ops.env_rollout.rollout_actions_autoreset)
+    rollout (a loop over T frames: the policy, then one launch of the
+             auto-reset env kernel, ops.env_rollout.rollout_actions_autoreset;
+             on a card the frame is a CUDA graph replayed T times)
     -> GAE(lambda), a reverse loop over T
     -> advantage standardization over the whole batch
     -> num_sgd_iter epochs x minibatched Adam steps
@@ -54,10 +55,13 @@ from ..models.policy import Policy, action_dist
 from ..ops.env_rollout import rollout_actions_autoreset
 from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
 from ..parallel import distributed
+from ..utils.cuda_graph import (FrameLoop, LoopCache, param_addresses,
+                                resolve_driver)
 from .config import PPOConfig
 
 __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
-           "Trajectory", "init_train_state", "rollout", "compute_gae",
+           "Trajectory", "init_train_state", "RolloutLoop", "rollout",
+           "compute_gae",
            "ppo_loss", "loss_and_stats", "aux_from_stats", "adam_update",
            "sgd_epochs", "update_kl_coeff", "standardize", "flat_batch",
            "iteration_coeffs", "episode_metrics", "learn", "next_state",
@@ -94,6 +98,16 @@ class EpisodeStats:
             ret_max=torch.full((), -torch.inf, dtype=torch.float32,
                                device=device),
             len_sum=z(), zs_finished=z(), zs_ret_sum=z())
+
+    def clone(self) -> "EpisodeStats":
+        return EpisodeStats(**{f.name: getattr(self, f.name).clone()
+                               for f in dataclasses.fields(self)})
+
+    def copy_(self, other: "EpisodeStats") -> "EpisodeStats":
+        """Copy ``other``'s values into these tensors, in place."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+        return self
 
     def update(self, reward, done, zero_start) -> "EpisodeStats":
         ep_return = self.ep_return + reward
@@ -226,9 +240,98 @@ def init_train_state(seed: int, env_cfg: EnvConfig, ppo: PPOConfig,
         generator=generator, iteration=0, env_steps=0.0)
 
 
+# The rollout loops of recent calls of :func:`rollout`.  A loop holds its
+# policy and generator, so the ids in its key stay theirs while it is kept.
+_LOOPS = LoopCache(4)
+
+
+class RolloutLoop(FrameLoop):
+    """:func:`rollout`'s frames on static buffers: the env state, the
+    episode statistics, and the (T, ...) trajectory, written at a
+    device-side index.
+
+    Built for one policy, generator, env count and shard.  On a card the
+    frame is captured once as a CUDA graph against the policy's parameters,
+    which Adam and ``load_state_dict`` update in place, and replayed once
+    per frame (``utils/cuda_graph.py``).  :func:`rollout` keeps its loops
+    in ``_LOOPS``, so the iterations of a run reuse one capture.
+    """
+
+    def __init__(self, env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+                 generator: torch.Generator, n: int, device, shard=None):
+        super().__init__(device, (generator,),
+                         (rollout_actions_autoreset,
+                          sharded_rollout_actions_autoreset))
+        self.env_cfg, self.ppo, self.policy = env_cfg, ppo, policy
+        self.generator, self.n, self.shard = generator, n, shard
+        self.env_step = (sharded_rollout_actions_autoreset
+                         if distributed.is_initialized()
+                         else rollout_actions_autoreset)
+        self.state = self.stats = None
+        self.traj = {}
+        self.rewards = torch.empty((1, n), dtype=torch.float32, device=device)
+        self.dones = torch.empty((1, n), dtype=torch.bool, device=device)
+        self.zero_start = torch.empty(n, dtype=torch.bool, device=device)
+        self.idx = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def _record(self, values):
+        for k, v in zip(Trajectory._fields, values):
+            if k not in self.traj:  # the first frame, never under capture
+                self.traj[k] = torch.empty(
+                    (self.ppo.rollout_length,) + tuple(v.shape),
+                    dtype=v.dtype, device=self.device)
+            self.traj[k].index_copy_(0, self.idx, v.unsqueeze(0))
+
+    def frame(self):
+        cfg, state, n = self.env_cfg, self.state, self.n
+        obs = env_core.compute_obs(cfg, state.player, state.yaw,
+                                   state.time_remaining).to(torch.float32)
+        logits, value = self.policy(obs)
+        dist = action_dist(cfg, logits)
+        ka, ya = dist.sample(self.generator, self.shard)
+        logp = dist.logp(ka, ya)
+        draw = dict(generator=self.generator, dtype=torch.float32,
+                    device=self.device)
+        ru = (torch.rand((5, n), **draw) if self.shard is None
+              else self.shard.draw(torch.rand, (5, n), 1, **draw))
+        self.zero_start.copy_(state.zero_start)
+        self.env_step(cfg, state, ka[None], ya[None], ru[None],
+                      out=(state, self.rewards, self.dones))
+        self.stats.copy_(self.stats.update(self.rewards[0], self.dones[0],
+                                           self.zero_start))
+        self._record((obs, ka, ya, logits, logp, value, self.rewards[0],
+                      self.dones[0], ru))
+        self.idx += 1
+
+    def rollout(self, env_state: env_core.EnvState, stats: EpisodeStats,
+                driver=None):
+        """:func:`rollout` from ``env_state`` and ``stats`` with this
+        loop's policy and generator; ``driver`` as in :func:`rollout`."""
+        driver = resolve_driver(driver, self.device)
+        with torch.no_grad():
+            if self.state is None:
+                self.state, self.stats = env_state.clone(), stats.clone()
+            else:
+                self.state.copy_(env_state)
+                self.stats.copy_(stats)
+            self.idx.zero_()
+            self.run(self.ppo.rollout_length, driver)
+            # Bootstrap value of the state after the last frame (re-drawn
+            # envs bootstrap their fresh episode; done-masking in GAE
+            # handles the seam).
+            state = self.state
+            final_obs = env_core.compute_obs(
+                self.env_cfg, state.player, state.yaw,
+                state.time_remaining).to(torch.float32)
+            _, bootstrap_value = self.policy(final_obs)
+            traj = Trajectory(*(self.traj[k].clone()
+                                for k in Trajectory._fields))
+        return state.clone(), self.stats.clone(), traj, bootstrap_value
+
+
 def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
             env_state: env_core.EnvState, stats: EpisodeStats,
-            generator: torch.Generator, shard=None):
+            generator: torch.Generator, shard=None, driver=None):
     """Collect T frames from N envs with the policy in the loop.
 
     Each frame samples the policy, draws the five reset uniforms from
@@ -238,41 +341,21 @@ def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     envs).  With an env ``shard`` the draws are made for the whole batch
     and cut to the shard's envs.
 
+    ``driver``: ``"graph"`` (the default on a card) captures the frame as a
+    CUDA graph and replays it once per frame, ``"eager"`` (the CPU's) calls
+    it once per frame.  The :class:`RolloutLoop` is kept in ``_LOOPS`` by
+    everything its capture is bound to, so a later call with the same
+    policy (its parameters at the same addresses), generator, geometry and
+    shard replays the same graph.
+
     Returns (env_state', stats', trajectory, bootstrap_value).
     """
-    n = env_state.num_envs
-    device = env_state.yaw.device
-    env_step = (sharded_rollout_actions_autoreset
-                if distributed.is_initialized() else rollout_actions_autoreset)
-    draw = dict(generator=generator, dtype=torch.float32, device=device)
-    frames = []
-    with torch.no_grad():
-        for _ in range(ppo.rollout_length):
-            obs = env_core.compute_obs(env_cfg, env_state.player,
-                                       env_state.yaw,
-                                       env_state.time_remaining).to(
-                                           torch.float32)
-            logits, value = policy(obs)
-            dist = action_dist(env_cfg, logits)
-            ka, ya = dist.sample(generator, shard)
-            logp = dist.logp(ka, ya)
-            ru = (torch.rand((5, n), **draw) if shard is None
-                  else shard.draw(torch.rand, (5, n), 1, **draw))
-            zero_start = env_state.zero_start
-            env_state, rewards, dones = env_step(
-                env_cfg, env_state, ka[None], ya[None], ru[None])
-            stats = stats.update(rewards[0], dones[0], zero_start)
-            frames.append((obs, ka, ya, logits, logp, value, rewards[0],
-                           dones[0], ru))
-        # Bootstrap value of the state after the last frame (re-drawn envs
-        # bootstrap their fresh episode; done-masking in GAE handles the
-        # seam).
-        final_obs = env_core.compute_obs(
-            env_cfg, env_state.player, env_state.yaw,
-            env_state.time_remaining).to(torch.float32)
-        _, bootstrap_value = policy(final_obs)
-    traj = Trajectory(*(torch.stack(x) for x in zip(*frames)))
-    return env_state, stats, traj, bootstrap_value
+    n, device = env_state.num_envs, env_state.yaw.device
+    key = (env_cfg, ppo, n, shard, device, distributed.is_initialized(),
+           id(policy), param_addresses(policy), id(generator))
+    loop = _LOOPS.get(key, lambda: RolloutLoop(env_cfg, ppo, policy,
+                                               generator, n, device, shard))
+    return loop.rollout(env_state, stats, driver)
 
 
 def compute_gae(ppo: PPOConfig, reward, done, value, bootstrap_value):

@@ -16,8 +16,9 @@ wish-angle plot of one episode into the log dir.  Runs on the card unless
 geometry into a temporary directory.
 
 Each iteration is ``ppo.rollout`` (one launch of the auto-reset env kernel
-per frame on the card) then ``ppo.learn``; the host loop times the two,
-prints and checkpoints.
+per frame on the card, the frame captured once as a CUDA graph and replayed
+in every iteration) then ``ppo.learn``; the host loop times the two, prints
+and checkpoints.
 
 Under torchrun each of the W ranks trains on num_envs / W envs; the mode
 follows ``use_shard_map`` as in the JAX package: false keeps the

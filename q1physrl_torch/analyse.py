@@ -1,12 +1,12 @@
 """Evaluation and trajectory analysis.
 
 - :func:`eval_zero_start` scores a policy on full zero-start episodes run
-  in lockstep: a Python loop over frames with a device-resident alive mask
-  and return accumulator.  Each frame samples the policy from the
-  observation and advances the env through ``ops.env_rollout.
-  rollout_actions`` with T=1, so on the card every env step is one launch
-  of the CUDA rollout kernel.  Given an env shard, each rank of a process
-  group plays its share of the episodes through
+  in lockstep (:func:`zero_start_returns`): a loop over frames with a
+  device-resident alive mask and return accumulator.  Each frame samples
+  the policy from the observation and advances the env through
+  ``ops.env_rollout.rollout_actions`` with T=1, so on the card every env
+  step is one launch of the CUDA rollout kernel.  Given an env shard, each
+  rank of a process group plays its share of the episodes through
   ``ops.sharded_rollout.sharded_rollout_actions``.
 - :func:`eval_sim` records one episode frame by frame through the same
   kernel (N=1, one launch per frame) as an :class:`EvalSimResult`, whose
@@ -18,6 +18,12 @@
   :func:`plot_all_checkpoints` is the CLI that draws the wish-angle plot of
   each checkpoint of a training run.
 
+The scoring and eval_sim loops are each a frame function on static buffers
+with two drivers (``utils/cuda_graph.py``): on a card the frame is captured
+once as a CUDA graph and replayed once per frame, as the JAX package
+compiles its scans once; on the CPU, and as the yardstick on a card
+(``driver="eager"``), it is called once per frame.
+
 matplotlib is imported only inside the functions that draw, so the module
 imports without it.
 """
@@ -25,6 +31,7 @@ imports without it.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 from pathlib import Path
 
@@ -39,9 +46,11 @@ from .ops.env_rollout import rollout_actions
 from .ops.sharded_rollout import sharded_rollout_actions
 from .parallel import distributed
 from .parallel.mesh import shard_env_axis
+from .utils.cuda_graph import FrameLoop, LoopCache, resolve_driver
 
-__all__ = ("EvalSimResult", "eval_sim", "eval_zero_start", "resolve_device",
-           "parse_demo", "draw_inputs", "plot_all_checkpoints")
+__all__ = ("EvalSimResult", "eval_sim", "eval_zero_start",
+           "zero_start_returns", "resolve_device", "parse_demo",
+           "draw_inputs", "plot_all_checkpoints")
 
 _PLAYER_FIELDS = tuple(f.name for f in dataclasses.fields(phys.PlayerState))
 
@@ -187,52 +196,134 @@ def _policy_from(policy, env_cfg: Config, deterministic: bool, shard=None):
     return fn
 
 
+# Captured loops of Policy objects, by (loop, config, mode, device, shape,
+# shard, parameter shapes); each holds its own static copy of the policy,
+# into which the scored weights are copied before it runs.  The few most
+# recent are kept: a run scores one or two shapes, in both modes.
+_LOOPS = LoopCache(8)
+
+
+def _cached_loop(key, policy, make):
+    """The loop that ``make(static_policy)`` builds for ``key``, made once
+    per key, with ``policy``'s weights copied into its static policy."""
+
+    def build():
+        with torch.inference_mode(False):
+            static = copy.deepcopy(policy).requires_grad_(False)
+        loop = make(static)
+        loop.policy = static
+        return loop
+
+    key = key + (tuple(p.shape for p in policy.parameters()),)
+    loop = _LOOPS.get(key, build)
+    with torch.no_grad():
+        for mine, theirs in zip(loop.policy.parameters(),
+                                policy.parameters()):
+            mine.copy_(theirs)
+    return loop
+
+
+def _loop_for(name, policy, cfg, deterministic, device, driver, size,
+              shard, make):
+    """The loop ``make(policy_fn)`` that runs ``policy`` on ``size``
+    envs (or steps): on the graph driver a Policy's cached loop
+    (:func:`_cached_loop`), else a new loop around ``policy`` itself."""
+    if driver == "graph" and isinstance(policy, Policy):
+        return _cached_loop(
+            (name, cfg, deterministic, device, size, shard), policy,
+            lambda static: make(_policy_from(static, cfg, deterministic,
+                                             shard)))
+    return make(_policy_from(policy, cfg, deterministic, shard))
+
+
+class _SimLoop(FrameLoop):
+    """eval_sim's frames at N=1: the env state, the alive flag, and a
+    (T, ...) record of each frame written at the device-side index
+    ``idx``."""
+
+    def __init__(self, policy_fn, cfg: Config, steps: int, device):
+        self.generator = torch.Generator(device)
+        super().__init__(device, (self.generator,), (rollout_actions,))
+        self.policy_fn, self.cfg, self.steps = policy_fn, cfg, steps
+        self.state = env_core.reset(cfg, self.generator, 1, device=device)
+        self.rewards = torch.empty((1, 1), dtype=torch.float32, device=device)
+        self.dones = torch.empty((1, 1), dtype=torch.bool, device=device)
+        self.alive = torch.ones(1, dtype=torch.bool, device=device)
+        self.idx = torch.zeros(1, dtype=torch.int64, device=device)
+        self.rec = {}
+
+    def start(self, seed: int):
+        self.generator.manual_seed(seed)
+        self.state.copy_(env_core.reset(self.cfg, self.generator, 1,
+                                        device=self.device))
+        self.alive.fill_(True)
+        self.idx.zero_()
+
+    def _record(self, values: dict):
+        for k, v in values.items():
+            if k not in self.rec:  # the first frame, never under capture
+                self.rec[k] = torch.empty((self.steps,) + tuple(v.shape),
+                                          dtype=v.dtype, device=self.device)
+            self.rec[k].index_copy_(0, self.idx, v.unsqueeze(0))
+
+    def frame(self):
+        cfg, state = self.cfg, self.state
+        obs = env_core.compute_obs(cfg, state.player, state.yaw,
+                                   state.time_remaining)
+        ka, ya = self.policy_fn(obs, self.generator)
+        yaw, smove, fmove, jump = env_core.decode_actions(cfg, state, ka, ya)
+        self._record({**{f: getattr(state.player, f)
+                         for f in _PLAYER_FIELDS},
+                      "obs": obs[0], "ka": ka[:, 0], "ya": ya})
+        rollout_actions(cfg, state, ka.unsqueeze(0), ya.unsqueeze(0),
+                        out=(state, self.rewards, self.dones))
+        self._record({"reward": self.rewards[0] * self.alive, "yaw": yaw,
+                      "smove": smove, "fmove": fmove, "jump": jump,
+                      "alive": self.alive})
+        self.alive &= ~self.dones[0]
+        self.idx += 1
+
+
 def eval_sim(policy, env_config: Config, *, seed: int = 0,
              deterministic: bool = False, zero_start: bool = True,
-             max_steps: int | None = None, device="cuda") -> EvalSimResult:
+             max_steps: int | None = None, device="cuda",
+             driver=None) -> EvalSimResult:
     """Roll out one episode and record its trajectory.
 
     ``policy`` is a :class:`Policy` on ``device`` or a callable
-    ``fn(obs, generator) -> (key_actions, yaw_action)``.  A host loop over
+    ``fn(obs, generator) -> (key_actions, yaw_action)``.  A loop over
     ``max_steps`` frames (default: a whole episode) at N=1: each frame
     builds the observation, runs the policy, decodes the actions (for the
-    recorded yaw, smove, fmove and jump) and advances the env by one call
-    of ``ops.env_rollout.rollout_actions`` with T=1, which on the card is
-    one launch of the CUDA kernel.  The record is cut after the frame that
-    ends the episode.
+    recorded yaw, smove, fmove and jump), advances the env by one call of
+    ``ops.env_rollout.rollout_actions`` with T=1, which on the card is one
+    launch of the CUDA kernel, and writes its record into (T, ...) buffers
+    at a device-side index.  The record is cut after the frame that ends
+    the episode.
+
+    ``driver``: ``"graph"`` (the default on a card) replays the frame as a
+    CUDA graph, captured once per config, steps, mode, device and layer
+    widths (``utils/cuda_graph.py``); ``"eager"`` (the CPU's) calls it
+    once per frame.
     """
     device = resolve_device(device)
+    driver = resolve_driver(driver, device)
     _full_float32_products()
     cfg = dataclasses.replace(env_config, num_envs=None)
     if zero_start:
         cfg = dataclasses.replace(cfg, zero_start_prob=1.0)
     if max_steps is None:
         max_steps = _episode_steps(cfg)
-    policy_fn = _policy_from(policy, cfg, deterministic)
-    generator = torch.Generator(device).manual_seed(seed)
 
-    frames = []
     with torch.inference_mode():
-        state = env_core.reset(cfg, generator, 1, device=device)
-        alive = torch.ones(1, dtype=torch.bool, device=device)
-        for _ in range(max_steps):
-            obs = env_core.compute_obs(cfg, state.player, state.yaw,
-                                       state.time_remaining)
-            ka, ya = policy_fn(obs, generator)
-            yaw, smove, fmove, jump = env_core.decode_actions(cfg, state, ka,
-                                                              ya)
-            pre = state.player
-            state, rewards, dones = rollout_actions(
-                cfg, state, ka.unsqueeze(0), ya.unsqueeze(0))
-            frames.append({
-                **{f: getattr(pre, f) for f in _PLAYER_FIELDS},
-                "obs": obs[0], "ka": ka[:, 0], "ya": ya,
-                "reward": rewards[0] * alive, "yaw": yaw, "smove": smove,
-                "fmove": fmove, "jump": jump, "alive": alive})
-            alive = alive & ~dones[0]
-        # One copy to the host at the end: (T, ...) numpy per field.
-        rec = {k: torch.stack([f[k] for f in frames]).cpu().numpy()
-               for k in frames[0]}
+        loop = _loop_for("sim", policy, cfg, deterministic, device, driver,
+                         max_steps, None,
+                         lambda fn: _SimLoop(fn, cfg, max_steps, device))
+        loop.start(seed)
+        loop.run(max_steps, driver)
+        # One copy to the host at the end: (T, ...) numpy per field, apart
+        # from the loop's buffers, which its next run overwrites.
+        rec = {k: v.to("cpu", copy=True).numpy()
+               for k, v in loop.rec.items()}
 
     t_len = int(rec["alive"][:, 0].sum())
     cut = lambda k: rec[k][:t_len, 0]
@@ -246,6 +337,83 @@ def eval_sim(policy, env_config: Config, *, seed: int = 0,
         fmove=cut("fmove"), jump=cut("jump"), device=str(device))
 
 
+class _ZeroStartLoop(FrameLoop):
+    """eval_zero_start's frames: the env state of this rank's episodes,
+    their returns and alive flags."""
+
+    def __init__(self, policy_fn, cfg: Config, n: int, device, shard=None):
+        self.generator = torch.Generator(device)
+        self.step = (rollout_actions if shard is None
+                     else sharded_rollout_actions)
+        super().__init__(device, (self.generator,),
+                         (rollout_actions, sharded_rollout_actions))
+        self.policy_fn, self.cfg, self.n, self.shard = policy_fn, cfg, n, shard
+        self.state = self._reset()
+        local = self.state.num_envs
+        self.rewards = torch.empty((1, local), dtype=torch.float32,
+                                   device=device)
+        self.dones = torch.empty((1, local), dtype=torch.bool, device=device)
+        self.ret = torch.zeros(local, dtype=torch.float32, device=device)
+        self.alive = torch.ones(local, dtype=torch.bool, device=device)
+
+    def _reset(self):
+        state = env_core.reset(self.cfg, self.generator, self.n,
+                               device=self.device)
+        return state if self.shard is None else shard_env_axis(state,
+                                                               self.shard)
+
+    def start(self, seed: int):
+        self.generator.manual_seed(seed)
+        self.state.copy_(self._reset())
+        self.ret.zero_()
+        self.alive.fill_(True)
+
+    def frame(self):
+        cfg, state = self.cfg, self.state
+        obs = env_core.compute_obs(cfg, state.player, state.yaw,
+                                   state.time_remaining)
+        ka, ya = self.policy_fn(obs, self.generator)
+        self.step(cfg, state, ka.unsqueeze(0), ya.unsqueeze(0),
+                  out=(state, self.rewards, self.dones))
+        self.ret += self.rewards[0] * self.alive
+        self.alive &= ~self.dones[0]
+
+
+def zero_start_returns(policy, env_config: Config, *,
+                       num_episodes: int = 512, deterministic: bool = False,
+                       seed: int = 0, device="cuda", shard=None,
+                       driver=None) -> np.ndarray:
+    """The returns of ``num_episodes`` full zero-start episodes run in
+    lockstep, as a (num_episodes,) float32 numpy array: what
+    :func:`eval_zero_start` summarizes.
+
+    Each frame samples the policy from the observation (or takes its mode
+    with ``deterministic``) and advances the envs by one call of
+    ``rollout_actions`` with T=1, one launch of the CUDA kernel on the
+    card.  ``shard``: as in :func:`eval_zero_start`.  ``driver``:
+    ``"graph"`` (the default on a card) replays the frame as a CUDA graph,
+    captured once per config, episodes, mode, device, shard and layer
+    widths; the JAX package likewise compiles its scan once per config, N,
+    steps and mode.  ``"eager"`` (the CPU's) calls the frame once per
+    frame.
+    """
+    device = resolve_device(device)
+    driver = resolve_driver(driver, device)
+    _full_float32_products()
+    cfg = dataclasses.replace(env_config, num_envs=None, zero_start_prob=1.0)
+    with torch.inference_mode():
+        loop = _loop_for("zero_start", policy, cfg, deterministic, device,
+                         driver, num_episodes, shard,
+                         lambda fn: _ZeroStartLoop(fn, cfg, num_episodes,
+                                                   device, shard))
+        loop.start(seed)
+        loop.run(_episode_steps(cfg), driver)
+        ret = loop.ret
+        if shard is not None:
+            ret = distributed.gather_env_axis(ret, shard)
+        return ret.to("cpu", copy=True).numpy()
+
+
 def eval_zero_start(policy, env_config: Config, *, num_episodes: int = 512,
                     deterministic: bool = False, seed: int = 0,
                     device="cuda", shard=None) -> dict:
@@ -254,41 +422,18 @@ def eval_zero_start(policy, env_config: Config, *, num_episodes: int = 512,
 
     ``policy`` is a :class:`Policy` on ``device`` or a callable
     ``fn(obs, generator) -> (key_actions, yaw_action)``.  Runs
-    ``num_episodes`` full zero-start episodes in lockstep and returns
-    summary stats.  Float32 matrix products run in full float32 (TF32 off).
+    ``num_episodes`` full zero-start episodes in lockstep
+    (:func:`zero_start_returns`, graphed on a card) and returns summary
+    stats.  Float32 matrix products run in full float32 (TF32 off).
 
     ``shard``: a ``parallel.mesh.EnvShard`` of the ``num_episodes``
     episodes; this rank plays its share, drawing what one process would
     for those episodes from the generator every rank seeds alike, and the
     returns are gathered, so every rank returns the same summary.
     """
-    device = resolve_device(device)
-    _full_float32_products()
-    cfg = dataclasses.replace(env_config, num_envs=None, zero_start_prob=1.0)
-    n = num_episodes
-    steps = _episode_steps(cfg)
-    policy_fn = _policy_from(policy, cfg, deterministic, shard)
-    generator = torch.Generator(device).manual_seed(seed)
-    step = rollout_actions if shard is None else sharded_rollout_actions
-
-    with torch.inference_mode():
-        state = env_core.reset(cfg, generator, n, device=device)
-        if shard is not None:
-            state = shard_env_axis(state, shard)
-            n = shard.local
-        ret = torch.zeros(n, dtype=torch.float32, device=device)
-        alive = torch.ones(n, dtype=torch.bool, device=device)
-        for _ in range(steps):
-            obs = env_core.compute_obs(cfg, state.player, state.yaw,
-                                       state.time_remaining)
-            ka, ya = policy_fn(obs, generator)
-            state, rewards, dones = step(
-                cfg, state, ka.unsqueeze(0), ya.unsqueeze(0))
-            ret += rewards[0] * alive
-            alive &= ~dones[0]
-        if shard is not None:
-            ret = distributed.gather_env_axis(ret, shard)
-        ret = ret.cpu().numpy()
+    ret = zero_start_returns(policy, env_config, num_episodes=num_episodes,
+                             deterministic=deterministic, seed=seed,
+                             device=device, shard=shard)
     return {
         "mean": float(ret.mean()), "median": float(np.median(ret)),
         "std": float(ret.std()), "min": float(ret.min()),

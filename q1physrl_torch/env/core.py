@@ -50,6 +50,28 @@ class EnvState:
     def num_envs(self) -> int:
         return self.yaw.shape[0]
 
+    def leaves(self) -> tuple:
+        """The 11 tensors: the player's six fields, then the rest, in the
+        order of the env kernels' ``Leaves`` (``ops/csrc/env_rollout.cu``)."""
+        p = self.player
+        return (p.z_pos, p.vel_x, p.vel_y, p.vel_z, p.on_ground,
+                p.jump_released, self.yaw, self.time_remaining,
+                self.zero_start, self.last_keys, self.last_key_press_time)
+
+    def clone(self) -> "EnvState":
+        return dataclasses.replace(
+            self, player=phys.PlayerState(**{
+                f.name: getattr(self.player, f.name).clone()
+                for f in dataclasses.fields(phys.PlayerState)}),
+            **{f.name: getattr(self, f.name).clone()
+               for f in dataclasses.fields(self) if f.name != "player"})
+
+    def copy_(self, other: "EnvState") -> "EnvState":
+        """Copy ``other``'s values into these tensors, in place."""
+        for mine, theirs in zip(self.leaves(), other.leaves()):
+            mine.copy_(theirs)
+        return self
+
 
 @dataclasses.dataclass
 class StepResult:
@@ -100,6 +122,15 @@ def _obs_scale(scale: tuple, dtype: torch.dtype, device: torch.device):
         return torch.tensor(scale, dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(value: float, dtype: torch.dtype, device: torch.device):
+    """``value`` as a 0-dim tensor, made once per value, dtype and device,
+    so that a frame does not fill a new one (a kernel on the card) every
+    step.  Made outside inference mode, as :func:`_obs_scale` is."""
+    with torch.inference_mode(False):
+        return torch.full((), value, dtype=dtype, device=device)
+
+
 def max_yaw_delta(cfg: Config) -> float:
     """Largest yaw change per frame, in degrees.
 
@@ -133,10 +164,12 @@ def _decode(cfg: Config, last_keys, last_key_press_time, yaw, key_actions,
         mouse_x = torch.zeros_like(yaw)
     elif yaw_steps == -1:
         mouse_x = (yaw_action * yaw_delta
-                   / yaw_action.new_full((), cfg.action_range))
+                   / _divisor(float(cfg.action_range), yaw_action.dtype,
+                              yaw_action.device))
     else:
         mouse_x = ((yaw_action - yaw_steps) * yaw_delta
-                   / yaw_action.new_full((), yaw_steps))
+                   / _divisor(float(yaw_steps), yaw_action.dtype,
+                              yaw_action.device))
 
     # Rate-limit key presses: a 0->1 transition is suppressed unless
     # key_press_delay has elapsed since the last registered press.

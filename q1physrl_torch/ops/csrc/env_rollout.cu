@@ -58,6 +58,16 @@
 //   env that starts with another latch takes its first frame through those
 //   conversions, outside the T loop);
 // - blocks of 64 threads spread the last wave of a launch over the SMs.
+//
+// rollout_actions and rollout_autoreset run on their main paths at T=1, one
+// launch per env step inside a frame loop (scoring, eval_sim, the PPO
+// rollout), so what binds them there is the launch, not the body.  The
+// loops are captured as CUDA graphs (q1physrl_torch/utils/cuda_graph.py),
+// which takes the host's launch cost out; inside a launch, the state, key
+// and yaw loads of frame 0 are issued before the move-table fill and its
+// barrier (run_frames), so their latency overlaps the fill.  The wrappers
+// may write the new state over the old (each thread reads its env's leaves
+// before it writes them), so a captured frame keeps fixed addresses.
 
 // Numerics: float32 only (the float64 parity mode is the plain versions'
 // job).  Build with -fmad=false: the plain versions and the JAX reference
@@ -425,6 +435,72 @@ __device__ __forceinline__ void reset_env(Env& e, float u_zs, float u_yaw,
   }
 }
 
+// One frame's streamed actions of env i: K keys and the yaw action.
+template <int K>
+struct Actions {
+  int keys[K];
+  float yaw;
+};
+
+template <int K>
+__device__ __forceinline__ Actions<K> load_actions(
+    const int32_t* __restrict__ key_actions,
+    const float* __restrict__ yaw_actions, int t, int i, int n) {
+  Actions<K> a;
+#pragma unroll
+  for (int j = 0; j < K; ++j) a.keys[j] = key_actions[(t * K + j) * n + i];
+  a.yaw = yaw_actions[t * n + i];
+  return a;
+}
+
+// The T loop of rollout_actions_kernel and rollout_autoreset_kernel.  The
+// scoring, analysis and PPO-rollout loops launch them at T=1, one env step
+// per launch, so a launch's time is its latency: the state, key and yaw
+// loads of frame 0 are issued before the block fills its move table and
+// waits at the barrier, and their global-memory latency overlaps the fill.
+// A thread past the last env loads nothing but still meets the barrier.
+// Frame 0 takes the plain conversions where a key latch is not 0 or 1
+// (latches_are_bits); every later frame finds bits.  `after_step(t, e,
+// done)` runs after each step (the auto-reset).
+template <int K, typename AfterStep>
+__device__ __forceinline__ void run_frames(
+    const Leaves& in, const Leaves& out,
+    const int32_t* __restrict__ key_actions,
+    const float* __restrict__ yaw_actions, float* __restrict__ rewards,
+    uint8_t* __restrict__ dones, int n, int t_steps, const Params& p,
+    AfterStep after_step) {
+  __shared__ float2 moves[kMoveTable];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  Env e;
+  Actions<K> first;
+  if (live) {
+    e = load_env<K>(in, i, n);
+    if (t_steps > 0) first = load_actions<K>(key_actions, yaw_actions, 0, i, n);
+  }
+  fill_move_table(moves, p);
+  if (!live) return;
+  auto frame = [&](int t, const Actions<K>& a, auto any_latch) {
+    bool done;
+    rewards[t * n + i] = env_step<K, decltype(any_latch)::value>(
+        e, a.keys, a.yaw, moves, p, done);
+    dones[t * n + i] = done;
+    after_step(t, e, done);
+  };
+  if (t_steps > 0) {
+    if (latches_are_bits<K>(e)) {
+      frame(0, first, std::false_type{});
+    } else {  // a hand-made latch: see latches_are_bits
+      frame(0, first, std::true_type{});
+    }
+  }
+  for (int t = 1; t < t_steps; ++t) {
+    frame(t, load_actions<K>(key_actions, yaw_actions, t, i, n),
+          std::false_type{});
+  }
+  store_env<K>(out, e, i, n);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 rollout_actions_kernel(Leaves in, Leaves out,
@@ -433,27 +509,8 @@ rollout_actions_kernel(Leaves in, Leaves out,
                        float* __restrict__ rewards,              // (T, N)
                        uint8_t* __restrict__ dones,              // (T, N)
                        int n, int t_steps, Params p) {
-  __shared__ float2 moves[kMoveTable];
-  fill_move_table(moves, p);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Env e = load_env<K>(in, i, n);
-  auto frame = [&](int t, auto any_latch) {
-    int keys[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) keys[j] = key_actions[(t * K + j) * n + i];
-    bool done;
-    rewards[t * n + i] = env_step<K, decltype(any_latch)::value>(
-        e, keys, yaw_actions[t * n + i], moves, p, done);
-    dones[t * n + i] = done;
-  };
-  if (latches_are_bits<K>(e)) {
-    for (int t = 0; t < t_steps; ++t) frame(t, std::false_type{});
-  } else if (t_steps > 0) {  // a hand-made latch: see latches_are_bits
-    frame(0, std::true_type{});
-    for (int t = 1; t < t_steps; ++t) frame(t, std::false_type{});
-  }
-  store_env<K>(out, e, i, n);
+  run_frames<K>(in, out, key_actions, yaw_actions, rewards, dones, n,
+                t_steps, p, [](int, Env&, bool) {});
 }
 
 template <int K>
@@ -465,31 +522,15 @@ rollout_autoreset_kernel(Leaves in, Leaves out,
                          float* __restrict__ rewards,              // (T, N)
                          uint8_t* __restrict__ dones,              // (T, N)
                          int n, int t_steps, Params p) {
-  __shared__ float2 moves[kMoveTable];
-  fill_move_table(moves, p);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Env e = load_env<K>(in, i, n);
-  auto frame = [&](int t, auto any_latch) {
-    int keys[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) keys[j] = key_actions[(t * K + j) * n + i];
-    bool done;
-    rewards[t * n + i] = env_step<K, decltype(any_latch)::value>(
-        e, keys, yaw_actions[t * n + i], moves, p, done);
-    dones[t * n + i] = done;
-    if (done) {
-      const float* u = reset_uniforms + (size_t)t * 5 * n + i;
-      reset_env<K>(e, u[0], u[n], u[2 * n], u[3 * n], u[4 * n], p);
-    }
-  };
-  if (latches_are_bits<K>(e)) {
-    for (int t = 0; t < t_steps; ++t) frame(t, std::false_type{});
-  } else if (t_steps > 0) {  // a hand-made latch: see latches_are_bits
-    frame(0, std::true_type{});
-    for (int t = 1; t < t_steps; ++t) frame(t, std::false_type{});
-  }
-  store_env<K>(out, e, i, n);
+  run_frames<K>(in, out, key_actions, yaw_actions, rewards, dones, n,
+                t_steps, p, [&](int t, Env& e, bool done) {
+                  if (done) {
+                    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                    const float* u = reset_uniforms + (size_t)t * 5 * n + i;
+                    reset_env<K>(e, u[0], u[n], u[2 * n], u[3 * n], u[4 * n],
+                                 p);
+                  }
+                });
 }
 
 // The draw layout, under key (seed, 0).  Env i's frames 3m, 3m+1 and 3m+2

@@ -235,19 +235,11 @@ _LEAF_NAMES = ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
                "last_keys", "last_key_press_time")
 
 
-def _all_leaves(state: env_core.EnvState):
-    """The 11 state leaves, in the order of the kernels' ``Leaves``."""
-    p = state.player
-    return (p.z_pos, p.vel_x, p.vel_y, p.vel_z, p.on_ground, p.jump_released,
-            state.yaw, state.time_remaining, state.zero_start,
-            state.last_keys, state.last_key_press_time)
-
-
 def _state_leaves(state: env_core.EnvState):
     """The leaves ``rollout_actions`` reads and writes, in its C argument
     order.  ``zero_start`` is not among them: the step carries it
     unchanged."""
-    leaves = _all_leaves(state)
+    leaves = state.leaves()
     return leaves[:8] + leaves[9:]
 
 
@@ -274,7 +266,7 @@ def _check_state(cfg: Config, state: env_core.EnvState, device, extra=()):
     f32, i32, b = torch.float32, torch.int32, torch.bool
     dtypes = (f32, f32, f32, f32, b, b, f32, f32, b, i32, f32)
     shapes = [(n,)] * 9 + [(k, n)] * 2
-    expected = list(extra) + list(zip(_LEAF_NAMES, _all_leaves(state),
+    expected = list(extra) + list(zip(_LEAF_NAMES, state.leaves(),
                                       dtypes, shapes))
     for name, x, dtype, shape in expected:
         if x.dtype != dtype or tuple(x.shape) != shape:
@@ -308,6 +300,22 @@ def _check(cfg: Config, state: env_core.EnvState, key_actions, yaw_actions,
     return n, t, k
 
 
+def _check_out(cfg: Config, out, n, t, device):
+    """Raise unless ``out`` is an (EnvState, rewards (T, N) float32, dones
+    (T, N) bool) the kernels can write, on ``device``."""
+    state, rewards, dones = out
+    _check_state(cfg, state, device,
+                 [("rewards out", rewards, torch.float32, (t, n)),
+                  ("dones out", dones, torch.bool, (t, n))])
+
+
+def _write_out(result, out):
+    """Copy the plain version's ``result`` into ``out``; return ``out``."""
+    for o, x in zip(out, result):
+        o.copy_(x)
+    return out
+
+
 def _cuda_device(device, name):
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {device}")
@@ -336,12 +344,16 @@ def rollout_actions_plain(cfg: Config, state: env_core.EnvState, key_actions,
 
 
 def rollout_actions(cfg: Config, state: env_core.EnvState, key_actions,
-                    yaw_actions):
+                    yaw_actions, out=None):
     """Fused T-step rollout with streamed actions (no auto-reset).
 
     Args:
         key_actions: (T, K, N) int32.
         yaw_actions: (T, N) float32.
+        out: optional (EnvState, rewards, dones) to write the result into
+            and return; its state may be ``state`` itself (each env's
+            leaves are read before they are written).  A loop captured as
+            a CUDA graph writes so to fixed addresses.
 
     Returns: (EnvState, rewards (T, N) float32, dones (T, N) bool) — equal
     to a loop of ``core.step`` with ``compute_observation=False``.
@@ -351,15 +363,26 @@ def rollout_actions(cfg: Config, state: env_core.EnvState, key_actions,
     """
     n, t, k = _check(cfg, state, key_actions, yaw_actions)
     device = yaw_actions.device
+    if out is not None:
+        _check_out(cfg, out, n, t, device)
     if device.type == "cpu":
-        return rollout_actions_plain(cfg, state, key_actions, yaw_actions)
+        result = rollout_actions_plain(cfg, state, key_actions, yaw_actions)
+        return result if out is None else _write_out(result, out)
     _cuda_device(device, "rollout_actions")
 
     fn = _library().q1_rollout_actions
     leaves = _state_leaves(state)
-    outs = tuple(torch.empty_like(x) for x in leaves)
-    rewards = torch.empty((t, n), dtype=torch.float32, device=device)
-    dones = torch.empty((t, n), dtype=torch.bool, device=device)
+    if out is None:
+        outs = tuple(torch.empty_like(x) for x in leaves)
+        rewards = torch.empty((t, n), dtype=torch.float32, device=device)
+        dones = torch.empty((t, n), dtype=torch.bool, device=device)
+        zero_start = state.zero_start
+    else:
+        outs = _state_leaves(out[0])
+        rewards, dones = out[1:]
+        zero_start = out[0].zero_start
+        if zero_start.data_ptr() != state.zero_start.data_ptr():
+            zero_start.copy_(state.zero_start)
     with torch.cuda.device(device):
         err = fn(*(x.data_ptr() for x in leaves),
                  *(x.data_ptr() for x in outs),
@@ -372,7 +395,9 @@ def rollout_actions(cfg: Config, state: env_core.EnvState, key_actions,
                  torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err)
     rollout_actions.launches += 1
-    leaves = outs[:8] + (state.zero_start,) + outs[8:]
+    if out is not None:
+        return out
+    leaves = outs[:8] + (zero_start,) + outs[8:]
     return _state_from(leaves), rewards, dones
 
 
@@ -398,7 +423,8 @@ def rollout_actions_autoreset_plain(cfg: Config, state: env_core.EnvState,
 
 
 def rollout_actions_autoreset(cfg: Config, state: env_core.EnvState,
-                              key_actions, yaw_actions, reset_uniforms):
+                              key_actions, yaw_actions, reset_uniforms,
+                              out=None):
     """Fused T-step rollout with streamed actions and episode auto-reset
     from streamed uniform draws.
 
@@ -408,6 +434,7 @@ def rollout_actions_autoreset(cfg: Config, state: env_core.EnvState,
         reset_uniforms: (T, 5, N) float32 uniform-[0, 1) draws, in the
             order of ``core.reset_from_uniforms`` (zero start, yaw, time,
             speed, angle).
+        out: as in :func:`rollout_actions`.
 
     Returns: (EnvState, rewards (T, N) float32, dones (T, N) bool) — equal
     to a loop of ``core.step_autoreset(reset_uniforms=ru[t])``; rewards and
@@ -419,16 +446,23 @@ def rollout_actions_autoreset(cfg: Config, state: env_core.EnvState,
     """
     n, t, k = _check(cfg, state, key_actions, yaw_actions, reset_uniforms)
     device = yaw_actions.device
+    if out is not None:
+        _check_out(cfg, out, n, t, device)
     if device.type == "cpu":
-        return rollout_actions_autoreset_plain(cfg, state, key_actions,
-                                               yaw_actions, reset_uniforms)
+        result = rollout_actions_autoreset_plain(cfg, state, key_actions,
+                                                 yaw_actions, reset_uniforms)
+        return result if out is None else _write_out(result, out)
     _cuda_device(device, "rollout_actions_autoreset")
 
     fn = _library().q1_rollout_actions_autoreset
-    leaves = _all_leaves(state)
-    outs = tuple(torch.empty_like(x) for x in leaves)
-    rewards = torch.empty((t, n), dtype=torch.float32, device=device)
-    dones = torch.empty((t, n), dtype=torch.bool, device=device)
+    leaves = state.leaves()
+    if out is None:
+        outs = tuple(torch.empty_like(x) for x in leaves)
+        rewards = torch.empty((t, n), dtype=torch.float32, device=device)
+        dones = torch.empty((t, n), dtype=torch.bool, device=device)
+    else:
+        outs = out[0].leaves()
+        rewards, dones = out[1:]
     with torch.cuda.device(device):
         err = fn(_pointers(leaves), _pointers(outs), key_actions.data_ptr(),
                  yaw_actions.data_ptr(), reset_uniforms.data_ptr(),
@@ -437,7 +471,7 @@ def rollout_actions_autoreset(cfg: Config, state: env_core.EnvState,
                  torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err)
     rollout_actions_autoreset.launches += 1
-    return _state_from(outs), rewards, dones
+    return out if out is not None else (_state_from(outs), rewards, dones)
 
 
 rollout_actions_autoreset.launches = 0
@@ -561,7 +595,7 @@ def rollout_random(cfg: Config, state: env_core.EnvState, t_steps: int,
     _cuda_device(device, "rollout_random")
 
     fn = _library().q1_rollout_random
-    leaves = _all_leaves(state)
+    leaves = state.leaves()
     outs = tuple(torch.empty_like(x) for x in leaves)
     reward_sum = torch.empty(n, dtype=torch.float32, device=device)
     done_count = torch.empty(n, dtype=torch.int32, device=device)

@@ -9,7 +9,9 @@ the ranks.  On CPU tensors the kernels' plain versions run, and in a single
 process (no process group) each function is its kernel on the whole batch.
 
 Each function counts in ``.launches`` the calls in which its kernel
-launched on the card (the kernel's own count rises alike).
+launched on the card (the kernel's own count rises alike); a replay of a
+captured frame adds its launches as the kernels' counts do
+(``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
@@ -35,11 +37,13 @@ def _count(fn, state):
 
 
 def sharded_rollout_actions(cfg: Config, state: env_core.EnvState,
-                            key_actions, yaw_actions):
+                            key_actions, yaw_actions, out=None):
     """:func:`env_rollout.rollout_actions` on this rank's envs: (T, K, n)
     keys and (T, n) yaw for the n envs of ``state``; returns (EnvState,
-    rewards (T, n), dones (T, n)).  No collectives."""
-    out = env_rollout.rollout_actions(cfg, state, key_actions, yaw_actions)
+    rewards (T, n), dones (T, n)), written into ``out`` where given.  No
+    collectives."""
+    out = env_rollout.rollout_actions(cfg, state, key_actions, yaw_actions,
+                                      out)
     _count(sharded_rollout_actions, state)
     return out
 
@@ -47,11 +51,13 @@ def sharded_rollout_actions(cfg: Config, state: env_core.EnvState,
 def sharded_rollout_actions_autoreset(cfg: Config,
                                       state: env_core.EnvState,
                                       key_actions, yaw_actions,
-                                      reset_uniforms):
+                                      reset_uniforms, out=None):
     """:func:`env_rollout.rollout_actions_autoreset` on this rank's envs,
-    with (T, 5, n) reset uniforms.  No collectives."""
+    with (T, 5, n) reset uniforms, written into ``out`` where given.  No
+    collectives."""
     out = env_rollout.rollout_actions_autoreset(cfg, state, key_actions,
-                                                yaw_actions, reset_uniforms)
+                                                yaw_actions, reset_uniforms,
+                                                out)
     _count(sharded_rollout_actions_autoreset, state)
     return out
 

@@ -12,7 +12,9 @@ semantics of one process.
 
 The run's generator stays alike on every rank: at the top of an iteration
 each rank draws one seed from it and folds in its rank to seed the stream
-of its rollout and shuffles (:func:`rank_generator`).
+of its rollout and shuffles (:func:`rank_generator`): one generator per
+rank, reseeded every iteration, so the rollout captured against it stays
+bound to it.
 """
 
 from __future__ import annotations
@@ -28,11 +30,16 @@ from ..algo.ppo import (Batch, Coeffs, TrainState, Trajectory, adam_update,
                         flat_batch, iteration_coeffs, loss_and_stats,
                         next_state, rollout, standardize, update_kl_coeff)
 from ..env.config import Config as EnvConfig
+from ..utils.cuda_graph import LoopCache
 from . import distributed
 
 __all__ = ("make_spmd_train_iter", "rank_generator", "local_config", "learn")
 
 _MASK64 = (1 << 64) - 1
+# The rank generators that rank_generator reseeds, by (id of the run
+# generator, rank), each kept beside the run generator it serves so that
+# the id stays that generator's.
+_RANK_GENERATORS = LoopCache(8)
 
 
 def _fold_in(seed: int, rank: int) -> int:
@@ -47,11 +54,16 @@ def rank_generator(generator: torch.Generator,
                    rank: Optional[int] = None) -> torch.Generator:
     """This rank's stream for one iteration: a seed drawn from the run's
     ``generator`` (advancing it alike on every rank), folded with the
-    rank."""
+    rank.  Every call for one run generator and rank reseeds and returns
+    the same generator, to which a rollout captured as a CUDA graph stays
+    bound."""
     rank = distributed.rank() if rank is None else rank
     seed = int(torch.randint(0, 1 << 62, (), generator=generator,
                              device=generator.device))
-    return torch.Generator(generator.device).manual_seed(_fold_in(seed, rank))
+    _, kept = _RANK_GENERATORS.get(
+        (id(generator), rank),
+        lambda: (generator, torch.Generator(generator.device)))
+    return kept.manual_seed(_fold_in(seed, rank))
 
 
 def local_config(ppo: PPOConfig, world_size: int) -> PPOConfig:

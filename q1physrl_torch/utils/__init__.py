@@ -1,6 +1,6 @@
-"""Utility subsystems: metrics sinks and the .dem demo file reader and
-writer."""
+"""Utility subsystems: metrics sinks, the .dem demo file reader and
+writer, and the CUDA-graph capture of a loop's frame."""
 
-from . import demfile, metrics_io
+from . import cuda_graph, demfile, metrics_io
 
-__all__ = ("demfile", "metrics_io")
+__all__ = ("cuda_graph", "demfile", "metrics_io")

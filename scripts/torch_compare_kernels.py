@@ -8,7 +8,7 @@ usage: python scripts/torch_compare_kernels.py --other-csrc DIR
 Builds the other sources with this tree's nvcc flags into a temporary
 directory, then, at each kernel's main-path shapes (as ``chip_smoke.py``
 names them: ``rollout_random`` at the bench and throughput shapes,
-``rollout_actions`` at the scoring and throughput shapes,
+``rollout_actions`` at the scoring, analysis and throughput shapes,
 ``rollout_actions_autoreset`` at the training shape), times one launch of
 each library's kernel through this tree's wrapper, from a CUDA-graph
 replay, in the order other, this, this, other (``--rounds`` times), on the
@@ -38,7 +38,8 @@ import chip_smoke  # noqa: E402
 from q1physrl_torch.algo.config import load_run_config  # noqa: E402
 from q1physrl_torch.ops import env_rollout  # noqa: E402
 
-GRAPH_REPS = {"bench": 3, "throughput": 20, "scoring": 100, "training": 100}
+GRAPH_REPS = {"bench": 3, "throughput": 20, "scoring": 100, "analysis": 100,
+              "training": 100}
 
 
 class _Library:

@@ -220,11 +220,13 @@ def natural_loops(succ):
 
 def t_loop(code, ranges, succ):
     """(header, body blocks, latches) of the main T loop, and the number of
-    copies of it.  A kernel of this tree holds two: the main one, and the
-    one an env with a hand-made key latch enters after its first frame
+    copies of it.  rollout_random holds two: the main one, and the one an
+    env with a hand-made key latch enters after its first frame
     (csrc/env_rollout.cu, latches_are_bits).  Both have the most blocks;
     the main one is entered without running a frame, so no MUFU (the
-    step's square roots and divides) lies on every path into it."""
+    step's square roots and divides) lies on every path into it.
+    rollout_actions and rollout_actions_autoreset hold one, entered after
+    frame 0 (run_frames)."""
     loops = natural_loops(succ)
     if not loops:
         return None, 0

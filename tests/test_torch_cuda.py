@@ -2,9 +2,10 @@
 version, their argument checks and launch counts, the kernels' Philox
 against its plain version and curand's, scoring on the card against the
 CPU, eval_sim and the counterfactual sweep on the card, a training
-iteration on the card; and for data-parallel training, the generator's
-bits in two processes and the sharded rollouts of two gloo ranks on one
-card.
+iteration on the card; for data-parallel training, the generator's bits
+in two processes and the sharded rollouts of two gloo ranks on one card;
+and the scoring, eval_sim and PPO-rollout loops replayed from CUDA graphs
+against their eager drivers.
 
 These tests need an NVIDIA card and nvcc; without them they skip (the
 kernels have no CPU mode).  Run them on the card with
@@ -164,6 +165,28 @@ def test_kernels_follow_plain_versions_on_any_key_latch(cuda, kernel,
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2])
     _assert_states_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("n,autoreset", [(1, False), (512, False),
+                                          (8192, True), (1000, True)])
+def test_kernels_write_the_state_over_itself(cuda, n, autoreset):
+    """The form the frame loops launch (``out=``, the state its own output,
+    rewards and dones into given buffers) at the main paths' shapes:
+    bitwise equal to the plain version, over frames where episodes end."""
+    cfg = dataclasses.replace(RUN4, zero_start_prob=0.3)
+    state, ka, ya = _case(cfg, n, 100, 9, cuda)
+    inputs = (ka, ya)
+    if autoreset:
+        inputs += (torch.rand((100, 5, n), device=cuda),)
+    name = "rollout_actions" + ("_autoreset" if autoreset else "")
+    want = getattr(env_rollout, name + "_plain")(cfg, state, *inputs)
+    mine = state.clone()
+    out = (mine, torch.empty((100, n), device=cuda),
+           torch.empty((100, n), dtype=torch.bool, device=cuda))
+    assert getattr(env_rollout, name)(cfg, mine, *inputs, out=out) is out
+    assert bool(want[2].any())
+    assert torch.equal(out[1], want[1]) and torch.equal(out[2], want[2])
+    _assert_states_equal(mine, want[0])
 
 
 def test_launch_shape(cuda):
@@ -331,3 +354,204 @@ def test_two_gloo_ranks_sharded_rollouts_equal_single_launch(cuda, tmp_path):
         assert int(r["random"][2]) == total > 0
         assert all(v == 1 for v in r["launches"].values()), r["launches"]
     assert sharded_rollout.SEED_STRIDE == 100003
+
+
+# --- the loops captured as CUDA graphs ----------------------------------------
+
+R5_CHECKPOINT = str(ROOT / "data" / "checkpoints" / "repl_r5"
+                    / "best_member_02_rllib" / "checkpoint")
+
+
+def _launches():
+    from q1physrl_torch.ops import sharded_rollout
+
+    return {f.__name__: f.launches for f in (
+        env_rollout.rollout_actions, env_rollout.rollout_actions_autoreset,
+        sharded_rollout.sharded_rollout_actions,
+        sharded_rollout.sharded_rollout_actions_autoreset)}
+
+
+def _rose(before, **expected):
+    after = _launches()
+    return {k: after[k] - before[k] for k in after} == {
+        k: expected.get(k, 0) for k in after}
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_graphed_zero_start_equals_eager(cuda, deterministic):
+    """The scoring loop replayed from its CUDA graph gives the eager
+    driver's returns to the bit, and one launch per env step."""
+    policy = _tpu_pb_policy(cuda)
+    n = 2 if deterministic else 96
+    steps = analyse._episode_steps(RUN4)
+    eager = analyse.zero_start_returns(policy, RUN4, num_episodes=n,
+                                       deterministic=deterministic, seed=3,
+                                       device=cuda, driver="eager")
+    for _ in range(2):  # the capture's run, then a replay of every frame
+        before = _launches()
+        graphed = analyse.zero_start_returns(policy, RUN4, num_episodes=n,
+                                             deterministic=deterministic,
+                                             seed=3, device=cuda)
+        assert _rose(before, rollout_actions=steps)
+        np.testing.assert_array_equal(graphed, eager)
+
+
+def test_two_checkpoints_reuse_one_capture(cuda):
+    """Scoring two checkpoints copies each one's weights into one captured
+    loop, and each gets its own eager bits."""
+    from q1physrl_torch.utils import cuda_graph
+
+    policies = [_tpu_pb_policy(cuda), Policy(RUN4, device=cuda)]
+    policies[1].load_state_dict(import_policy_params(R5_CHECKPOINT))
+    captures = cuda_graph.counters["captures"]
+    for policy in policies + policies:
+        eager = analyse.zero_start_returns(policy, RUN4, num_episodes=40,
+                                           device=cuda, driver="eager")
+        graphed = analyse.zero_start_returns(policy, RUN4, num_episodes=40,
+                                             device=cuda)
+        np.testing.assert_array_equal(graphed, eager)
+    assert cuda_graph.counters["captures"] == captures + 1
+
+
+def test_graphed_eval_sim_equals_eager(cuda):
+    policy = _tpu_pb_policy(cuda)
+    eager = analyse.eval_sim(policy, RUN4, max_steps=101, seed=5,
+                             device=cuda, driver="eager")
+    before = _launches()
+    graphed = analyse.eval_sim(policy, RUN4, max_steps=101, seed=5,
+                               device=cuda)
+    assert _rose(before, rollout_actions=101)
+    for f in dataclasses.fields(eager):
+        a, b = getattr(graphed, f.name), getattr(eager, f.name)
+        if f.name == "player_state":
+            for g in dataclasses.fields(a):
+                np.testing.assert_array_equal(getattr(a, g.name),
+                                              getattr(b, g.name))
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_graphed_rollout_equals_eager(cuda, sharded):
+    """The PPO rollout replayed from its CUDA graph: trajectory, final
+    state, episode statistics, bootstrap value and the generator's state
+    equal the eager driver's to the bit; one launch per frame.  The shard
+    draws for the whole batch and keeps its half."""
+    from q1physrl_torch.parallel.mesh import EnvShard, shard_env_axis
+
+    cfg = dataclasses.replace(RUN4, num_envs=None, zero_start_prob=0.3)
+    ppo_cfg = PPOConfig(num_envs=512, rollout_length=9, num_sgd_iter=1,
+                        sgd_minibatch_size=512)
+    shard = EnvShard(1, 2, 512) if sharded else None
+    outs = {}
+    for driver in ("eager", "graph"):
+        ts = ppo.init_train_state(7, cfg, ppo_cfg, cuda)
+        state, stats = ts.env_state, ts.stats
+        if sharded:
+            state, stats = (shard_env_axis(state, shard),
+                            shard_env_axis(stats, shard))
+        state.time_remaining = state.time_remaining * 0.05
+        before = _launches()
+        out = ppo.rollout(cfg, ppo_cfg, ts.policy, state, stats,
+                          ts.generator, shard, driver=driver)
+        assert _rose(before, rollout_actions_autoreset=9)
+        outs[driver] = out + (ts.generator.get_state(),)
+    (s0, st0, tr0, b0, g0), (s1, st1, tr1, b1, g1) = (outs["eager"],
+                                                       outs["graph"])
+    assert bool(tr0.done.any())
+    _assert_states_equal(s1, s0)
+    for f in dataclasses.fields(st0):
+        assert torch.equal(getattr(st1, f.name), getattr(st0, f.name)), f
+    for k in tr0._fields:
+        assert torch.equal(getattr(tr1, k), getattr(tr0, k)), k
+    assert torch.equal(b1, b0) and torch.equal(g1, g0)
+
+
+def test_trainer_recaptures_when_the_parameters_move(cuda, tmp_path):
+    """The Trainer keeps its captured rollout across iterations, and builds
+    a new one when a parameter's address changes."""
+    from q1physrl_torch.algo.config import RunConfig
+    from q1physrl_torch.algo.train import Trainer
+    from q1physrl_torch.utils import cuda_graph
+
+    run = RunConfig(ppo=PPOConfig(num_envs=256, rollout_length=8,
+                                  num_sgd_iter=1, sgd_minibatch_size=256),
+                    max_iterations=3, checkpoint_dir=str(tmp_path))
+    trainer = Trainer(run, device=cuda)
+    captures = cuda_graph.counters["captures"]
+    before = _launches()
+    trainer.step()
+    trainer.step()
+    assert cuda_graph.counters["captures"] == captures + 1
+    assert _rose(before, rollout_actions_autoreset=16)
+    layer = trainer.ts.policy.pi.layers[0]
+    layer.weight = torch.nn.Parameter(layer.weight.detach().clone())
+    trainer.step()
+    assert cuda_graph.counters["captures"] == captures + 2
+
+
+def test_train_iter_reuses_one_capture(cuda):
+    """ppo.train_iter, the bench's iteration, replays the rollout it
+    captured in its first call: one capture for three iterations, one
+    launch per frame."""
+    from q1physrl_torch.utils import cuda_graph
+
+    cfg = dataclasses.replace(RUN4, num_envs=None)
+    ppo_cfg = PPOConfig(num_envs=256, rollout_length=8, num_sgd_iter=1,
+                        sgd_minibatch_size=256)
+    ts = ppo.init_train_state(0, cfg, ppo_cfg, cuda)
+    captures = cuda_graph.counters["captures"]
+    before = _launches()
+    for _ in range(3):
+        ts, metrics = ppo.train_iter(cfg, ppo_cfg, ts)
+    assert cuda_graph.counters["captures"] == captures + 1
+    assert _rose(before, rollout_actions_autoreset=24)
+    assert np.isfinite(float(metrics["kl"]))
+
+
+def test_graphed_rollout_replays_after_a_reseed(cuda):
+    """A kept rollout loop whose generator is reseeded between rollouts,
+    as spmd reseeds its rank generator each iteration, replays what the
+    eager driver draws from that seed, to the bit."""
+    from q1physrl_torch.parallel import spmd
+
+    cfg = dataclasses.replace(RUN4, num_envs=None, zero_start_prob=0.3)
+    ppo_cfg = PPOConfig(num_envs=512, rollout_length=6, num_sgd_iter=1,
+                        sgd_minibatch_size=512)
+    runs = {}
+    for driver in ("graph", "eager"):
+        ts = ppo.init_train_state(3, cfg, ppo_cfg, cuda)
+        state, stats = ts.env_state, ts.stats
+        outs = []
+        for _ in range(3):
+            generator = spmd.rank_generator(ts.generator, rank=1)
+            state, stats, traj, boot = ppo.rollout(
+                cfg, ppo_cfg, ts.policy, state, stats, generator,
+                driver=driver)
+            outs.append((traj, boot))
+        runs[driver] = (state, outs)
+    (s1, graphed), (s0, eager) = runs["graph"], runs["eager"]
+    _assert_states_equal(s1, s0)
+    for (tr1, b1), (tr0, b0) in zip(graphed, eager):
+        for k in tr0._fields:
+            assert torch.equal(getattr(tr1, k), getattr(tr0, k)), k
+        assert torch.equal(b1, b0)
+    assert not torch.equal(graphed[0][0].obs, graphed[1][0].obs)
+
+
+def test_a_failed_capture_raises(cuda):
+    """A frame that syncs with the host cannot be captured: the capture
+    raises, and nothing falls back to the eager loop."""
+    from q1physrl_torch.utils.cuda_graph import FrameGraph
+
+    x = torch.zeros(4, device=cuda)
+
+    def frame():
+        x.add_(1.0)
+        if float(x.sum()) > 1e9:  # a host sync
+            x.zero_()
+
+    graph = FrameGraph(frame, cuda)
+    with pytest.raises(RuntimeError):
+        graph.run(3)
+    assert graph.graph is None

@@ -69,6 +69,24 @@ Phases, each printing one JSON line:
                replay of every frame on the kept loop) and eager on the
                card: trajectory, state, statistics, bootstrap value and
                generator to the bit.
+5a. sweep    — round 5's gated cohort (``configs/sweep_r5_repl2.yml``: 4
+               members of 400 envs x 125 frames, minibatch 128, 30 epochs,
+               full-width towers): rollout_actions_autoreset at the
+               population shape (N=1,600, T=1) against each member's own
+               launch at (400, 1), to the bit (phase 3 holds it to its
+               plain version in both forms and times it); the population
+               rollout through ``population.rollout``, graphed twice and
+               eager from one start, to the bit (trajectory, state,
+               per-member statistics, bootstrap value, all 4 generators),
+               with 125 launches per rollout; each member against a solo
+               ``ppo.rollout`` of its seed (generator to the bit, the rest
+               within MEMBER_TOL); the stacked Adam step
+               (every member's minibatch of 128 rows) against the solo one,
+               host ms, card-busy ms and kernels per step; then one
+               iteration through the sweep CLI into a temporary directory:
+               125 launches, a finite log row per member, params moved, a
+               stacked checkpoint that restores, seconds split into rollout
+               and learning.
 6. bench_env — the port bench's env metric: rollout_random at N=2^20, T=720.
 7. reference — one process's Trainer at ``configs/params_tpu.yml`` (8,192
                envs x 96 frames, minibatch 8,192, full-width towers) for
@@ -197,7 +215,8 @@ ANY_LATCHES = (-5, -1, 0, 1, 2, 3, 7)
 ACTIONS_SHAPES = {"scoring": (512, 1, 1000, 100),
                   "analysis": (1, 1, 1000, 100),
                   "throughput": (65536, 128, 20, 2)}
-AUTORESET_SHAPES = {"training": (8192, 1, 1000, 100)}
+AUTORESET_SHAPES = {"training": (8192, 1, 1000, 100),
+                    "population": (1600, 1, 1000, 100)}
 RANDOM_SHAPES = {"throughput": (65536, 128, 20, 2),
                  "bench": (1 << 20, 720, 5, 1)}
 ZERO_START_RESETS = 1 << 20
@@ -207,6 +226,28 @@ BENCH_ENV = dict(n=1 << 20, t=720, reps=3)
 # Findings), over the 150 s at which the smoke run keeps to one; the
 # geometry and widths stay full.
 TRAIN_ITERATIONS = 1
+
+# The sweep phase: round 5's gated cohort (4 members of 400 envs x 125
+# frames, minibatch 128, 30 epochs) at full width, one iteration through
+# the sweep CLI; the stacked and the solo Adam step timed over
+# ADAM_STEPS steps, profiled over ADAM_PROFILED.
+SWEEP_YAML = ROOT / "configs" / "sweep_r5_repl2.yml"
+SWEEP_ENV_STEPS = 50_000
+ADAM_STEPS, ADAM_PROFILED = 200, 10
+# A member's rollout against a solo run of its seed, (rtol, atol) by field:
+# the stacked products sum in another order than a solo run's, so the
+# tolerances are the CPU tests' for the port's rollout against the JAX
+# package's (tests/test_torch_train.py, test_rollout_matches_jax_frame_by_
+# frame; tests/_torch_common.py, assert_env_state_close); the draws, the
+# clocks and every flag, action and latch exactly.
+MEMBER_TOL = {"obs": (1e-5, 1e-5), "yaw_actions": (1e-5, 1e-5),
+              "logits": (1e-5, 1e-6), "value": (1e-5, 1e-6),
+              "logp": (1e-5, 1e-4), "reward": (1e-5, 1e-4),
+              "reset_uniforms": (0.0, 0.0), "bootstrap": (1e-5, 1e-6),
+              "z_pos": (1e-5, 1e-3), "vel_x": (1e-5, 1e-3),
+              "vel_y": (1e-5, 1e-3), "vel_z": (1e-5, 1e-3),
+              "yaw": (1e-6, 1e-4), "time_remaining": (0.0, 0.0),
+              "last_key_press_time": (0.0, 0.0), "stats": (1e-5, 1e-4)}
 
 # The data-parallel phases: params_tpu.yml, two gloo ranks on card 0.
 PARAMS_YAML = ROOT / "configs" / "params_tpu.yml"
@@ -744,6 +785,321 @@ def _phase_training(device):
     for r in records:
         _check_training("training", trained, r, "rollout_actions_autoreset",
                         iterations * run.ppo.rollout_length)
+    return result
+
+
+def _sweep_yaml(out_dir, max_env_steps):
+    """A copy of SWEEP_YAML with its base resolved, writing to ``out_dir``
+    and stopping at ``max_env_steps``; returns its path."""
+    import yaml
+
+    spec = yaml.safe_load(SWEEP_YAML.read_text())
+    spec.update(base=str(ROOT / spec["base"]), out_dir=str(out_dir),
+                max_env_steps=max_env_steps)
+    path = Path(out_dir).parent / f"{Path(out_dir).name}.yml"
+    path.write_text(yaml.safe_dump(spec))
+    return path
+
+
+def _population_start(env_cfg, ppo, members, device):
+    from q1physrl_torch.algo import population
+
+    return population.init_population([m.seed for m in members], env_cfg,
+                                      ppo, device)
+
+
+def _population_kernel(env_cfg, n, members, device):
+    """#2 at the population shape (P * n envs, T=1) against P launches on
+    each member's n envs: to the bit."""
+    import torch
+
+    from q1physrl_torch.ops.env_rollout import rollout_actions_autoreset
+    from q1physrl_torch.parallel.mesh import EnvShard, shard_env_axis
+
+    total = members * n
+    state, ka, ya = rollout_inputs(env_cfg, total, 1, 102, device)
+    ru = _reset_uniforms(total, 1, 102, device)
+    whole = rollout_actions_autoreset(env_cfg, state, ka, ya, ru)
+    err = 0.0
+    for i in range(members):
+        shard = EnvShard(i, members, total)
+        part = rollout_actions_autoreset(
+            env_cfg, shard_env_axis(state, shard), shard.take(ka),
+            shard.take(ya), shard.take(ru))
+        want = (shard_env_axis(whole[0], shard), shard.take(whole[1]),
+                shard.take(whole[2]))
+        err = max(err, _compare(f"member {i} of the population launch",
+                                part, want))
+    return {"n": total, "members": members, "dones": int(whole[2].sum()),
+            "max_abs_err_against_member_launches": err}
+
+
+def _population_rollouts(env_cfg, ppo, members, device):
+    """The population rollout through ``population.rollout``: graphed from
+    one start twice (the run that captures, then a replay of every frame on
+    the kept loop, the generators set back in between) and eager from the
+    same start, held equal to the bit (trajectory, state, per-member
+    statistics, bootstrap value, every generator); the env kernel's
+    launches in the first run.  Returns the eager run, the timings and the
+    frame's cost."""
+    import torch
+
+    from q1physrl_torch.algo import population
+    from q1physrl_torch.ops.env_rollout import rollout_actions_autoreset
+
+    def rollout(ps, driver):
+        out = population.rollout(env_cfg, ppo, ps.policy, ps.env_state,
+                                 ps.stats, ps.generators, driver=driver)
+        return out + ([g.get_state() for g in ps.generators],)
+
+    ps = _population_start(env_cfg, ppo, members, device)
+    seeds = [g.get_state() for g in ps.generators]
+    runs = {}
+    for name in ("first", "graphed"):
+        for g, s in zip(ps.generators, seeds):
+            g.set_state(s)
+        before = _captures()
+        rollout_actions_autoreset.launches = 0
+        out, seconds = _seconds(lambda: rollout(ps, "graph"), device)
+        runs[name] = (out, seconds, _capture_seconds(before),
+                      rollout_actions_autoreset.launches)
+    loop = next(reversed(population._LOOPS.loops.values()))
+    eager, eager_s = _seconds(
+        lambda: rollout(_population_start(env_cfg, ppo, members, device),
+                        "eager"), device)
+    for name, (out, _, _, _) in runs.items():
+        (s, st, tr, b, g), (s0, st0, tr0, b0, g0) = out, eager
+        same = (all(torch.equal(x, y) for x, y in zip(s.leaves(),
+                                                      s0.leaves()))
+                and all(torch.equal(getattr(st, f.name), getattr(st0, f.name))
+                        for f in dataclasses.fields(st0))
+                and all(torch.equal(x, y) for x, y in zip(tr, tr0))
+                and torch.equal(b, b0)
+                and all(torch.equal(x, y) for x, y in zip(g, g0)))
+        if not same:
+            raise AssertionError(f"population rollout: the graphed loop's "
+                                 f"{name} run differs from the eager driver")
+    launches = runs["first"][3]
+    if launches != ppo.rollout_length or runs["graphed"][3] != launches:
+        raise AssertionError(f"population rollout: expected "
+                             f"{ppo.rollout_length} launches of the env "
+                             f"kernel per rollout, counted "
+                             f"{launches} and {runs['graphed'][3]}")
+    if runs["graphed"][2]["captures"]:
+        raise AssertionError("population rollout: a second call with the "
+                             "same policy and generators captured again")
+    return eager, {"launches": launches, "eager_s": eager_s,
+                   "first_s": runs["first"][1],
+                   "graphed_s": runs["graphed"][1], **runs["first"][2],
+                   "graphed_equals_eager_bitwise": True,
+                   **_frame_profile(loop, ppo.rollout_length)}
+
+
+def _members_against_solo_runs(env_cfg, ppo, members, population_out,
+                               device):
+    """Each member's envs of the population rollout against a solo
+    ``ppo.rollout`` of its seed (graphed): generators to the bit, flags,
+    actions, latches and dones exactly, floats within MEMBER_TOL."""
+    import torch
+
+    from q1physrl_torch.algo import ppo as ppo_mod
+    from q1physrl_torch.phys import PlayerState
+
+    leaf_names = [f.name for f in dataclasses.fields(PlayerState)] + [
+        "yaw", "time_remaining", "zero_start", "last_keys",
+        "last_key_press_time"]
+    state, stats, traj, boot, gens = population_out
+    n = ppo.num_envs
+    worst = {}
+    for i, m in enumerate(members):
+        ts = ppo_mod.init_train_state(m.seed, env_cfg, ppo, device)
+        s_state, s_stats, s_traj, s_boot = ppo_mod.rollout(
+            env_cfg, ppo, ts.policy, ts.env_state, ts.stats, ts.generator)
+        if not torch.equal(ts.generator.get_state(), gens[i]):
+            raise AssertionError(f"member {i}: its generator differs from "
+                                 f"a solo run's of seed {m.seed}")
+        envs = slice(i * n, (i + 1) * n)
+        pairs = [(name, (x[..., envs] if name in ("key_actions",
+                                                  "reset_uniforms")
+                         else x[:, envs]), y)
+                 for name, x, y in zip(ppo_mod.Trajectory._fields, traj,
+                                       s_traj)]
+        pairs += [(name, x[..., envs], y) for name, x, y in
+                  zip(leaf_names, state.leaves(), s_state.leaves())]
+        pairs += [("bootstrap", boot[envs], s_boot)]
+        pairs += [(f"stats {f.name}", (x[envs] if x.dim() and x.shape[0]
+                                       == stats.finished.shape[0] * n
+                                       else x[i]), getattr(s_stats, f.name))
+                  for f in dataclasses.fields(stats)
+                  for x in [getattr(stats, f.name)]]
+        for name, x, y in pairs:
+            if x.dtype in (torch.bool, torch.int32):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"member {i}: {name} differs from "
+                                         f"the solo run's")
+                continue
+            x, y = x.double().cpu().numpy(), y.double().cpu().numpy()
+            rtol, atol = MEMBER_TOL[name.split()[0]]
+            np.testing.assert_allclose(x, y, rtol=rtol, atol=atol,
+                                       err_msg=f"member {i}: {name}")
+            # Equal entries (-inf ret_max included) differ by 0.
+            diff = np.subtract(x, y, where=x != y, out=np.zeros_like(x))
+            err = float(np.abs(diff).max()) if x.size else 0.0
+            worst[name] = max(worst.get(name, 0.0), err)
+    return {"members": len(members), "generators_equal_bitwise": True,
+            "max_abs_err": worst}
+
+
+def _adam_steps(env_cfg, ppo, members, population_out, device):
+    """The stacked Adam step (``population.minibatch_step``: every member's
+    minibatch of sgd_minibatch_size rows) against the solo one (member 0's
+    minibatch through ``ppo.loss_and_stats`` and ``ppo.adam_update``, as
+    ``ppo.sgd_epochs`` steps) over ADAM_STEPS steps each: host ms per step,
+    and over ADAM_PROFILED steps the card's busy ms and operations per
+    step."""
+    import torch
+
+    from q1physrl_torch.algo import population
+    from q1physrl_torch.algo import ppo as ppo_mod
+
+    state, stats, traj, boot, _ = population_out
+    ps = _population_start(env_cfg, ppo, members, device)
+    p = ps.members
+    adv, vt = ppo_mod.compute_gae(ppo, traj.reward, traj.done, traj.value,
+                                  boot)
+    batch = population.member_batch(
+        traj, population.standardize(adv, p), vt, p)
+    rows = ppo.sgd_minibatch_size
+    mb = ppo_mod.Batch(*(x[:, :rows] for x in batch))
+    steps = ADAM_STEPS + ADAM_PROFILED + 3
+    bc1, bc2 = population.bias_corrections(ps.count, steps, device)
+    lr = torch.full((p, 1), -float(np.float32(ppo.lr)), device=device)
+    kl = ps.kl_coeff[:, None]
+    ent = torch.full((p, 1), float(np.float32(ppo.entropy_coeff)),
+                     device=device)
+    k = [0]
+
+    def stacked():
+        population.minibatch_step(env_cfg, ppo, ps, mb, kl, ent, bc1[k[0]],
+                                  bc2[k[0]], lr)
+        k[0] += 1
+
+    ts = population.member_train_state(env_cfg, ps, 0)
+    solo_mb = ppo_mod.Batch(*(x[0] for x in mb))
+    params = [dict(ts.policy.named_parameters())[name]
+              for name in ts.opt_state.mu]
+
+    def solo():
+        total, _ = ppo_mod.loss_and_stats(env_cfg, ppo, ts.policy, solo_mb,
+                                          ts.kl_coeff, ppo.entropy_coeff)
+        grads = torch.autograd.grad(total, params)
+        ppo_mod.adam_update(ppo, params, grads, ts.opt_state)
+
+    out = {"rows_per_member": rows, "members": p, "steps": ADAM_STEPS}
+    for name, fn in (("stacked", stacked), ("solo", solo)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(ADAM_STEPS):
+            fn()
+        torch.cuda.synchronize(device)
+        host_ms = (time.perf_counter() - t0) * 1e3 / ADAM_STEPS
+        profile = _device_profile(fn, ADAM_PROFILED)
+        out[name] = {"host_ms_per_step": host_ms,
+                     "card_busy_ms_per_step": profile["device_ms"],
+                     "kernels_per_step": profile["operations"],
+                     "top": profile["top"]}
+    out["stacked_over_solo_host"] = (out["stacked"]["host_ms_per_step"]
+                                     / out["solo"]["host_ms_per_step"])
+    return out
+
+
+def _sweep_cli(env_cfg, ppo, members, device):
+    """One population iteration through the sweep CLI on a copy of
+    SWEEP_YAML (max_env_steps SWEEP_ENV_STEPS) in a temporary directory:
+    the env kernel's launches, a log row of finite metrics per member, a
+    stacked checkpoint that restores, every member's params moved; seconds
+    split into rollout and learning."""
+    import torch
+
+    from q1physrl_torch.algo import checkpoint as ckpt
+    from q1physrl_torch.algo import sweep
+    from q1physrl_torch.ops.env_rollout import rollout_actions_autoreset
+
+    with tempfile.TemporaryDirectory(prefix="q1_chip_sweep_") as tmp:
+        out_dir = Path(tmp) / "out"
+        spec = _sweep_yaml(out_dir, SWEEP_ENV_STEPS)
+        rollout_actions_autoreset.launches = 0
+        trainer, seconds = _seconds(
+            lambda: sweep.main([str(spec), "--device", str(device)]), device)
+        launches = rollout_actions_autoreset.launches
+        rows = [[json.loads(line) for line in
+                 (out_dir / "logs" / f"member_{i:02d}.jsonl").read_text()
+                 .splitlines()] for i in range(len(members))]
+        latest = ckpt.latest_checkpoint(str(out_dir / "stacked"))
+        fresh = _population_start(env_cfg, ppo, members, device)
+        start_flat = fresh.policy.flat.clone()
+        restored = ckpt.restore_population(latest, fresh)
+    ps = trainer.ps
+    moved = [not torch.equal(ps.policy.flat[i], start_flat[i])
+             for i in range(ps.members)]
+    restores = (torch.equal(restored.policy.flat, ps.policy.flat)
+                and torch.equal(restored.mu, ps.mu)
+                and restored.count == ps.count
+                and restored.env_steps == ps.env_steps)
+    finite = all(len(r) == 1 and all(np.isfinite(r[0][k]) for k in
+                                     ("entropy", "kl", "vf_loss", "kl_coeff",
+                                      "mean_reward")) and r[0]["kl"] >= 0
+                 for r in rows)
+    result = {"config": str(SWEEP_YAML.relative_to(ROOT)),
+              "max_env_steps": SWEEP_ENV_STEPS, "seconds": seconds,
+              **trainer.seconds, "iterations": ps.iteration,
+              "env_steps": ps.env_steps,
+              "adam_steps_per_iteration": ppo.num_sgd_iter
+              * ppo.num_minibatches, "launches": launches,
+              "checkpoint": Path(latest).name, "checkpoint_restores":
+              restores, "params_moved": moved, "rows_finite": finite,
+              "rows": [{k: r[0][k] for k in ("entropy", "kl", "vf_loss",
+                                             "mean_reward", "entropy_coeff",
+                                             "lr", "stage")} for r in rows]}
+    if launches != ppo.rollout_length:
+        raise RuntimeError(f"sweep: expected {ppo.rollout_length} launches "
+                           f"of the env kernel, counted {launches}")
+    if not (finite and restores and all(moved)
+            and ps.iteration == [1] * len(members)):
+        raise RuntimeError(f"sweep: the CLI's iteration is not sane: "
+                           f"{result}")
+    return result
+
+
+def _phase_sweep(device):
+    """5a: round 5's gated cohort (SWEEP_YAML) on the card: #2 at the
+    population shape against the members' own launches, the population
+    rollout graphed against eager and each member against a solo run of
+    its seed, the stacked and the solo Adam step timed, and one iteration
+    through the sweep CLI."""
+    from q1physrl_torch.algo import sweep
+
+    run, members, *_ = sweep.load_sweep(str(_sweep_yaml(
+        Path(tempfile.mkdtemp(prefix="q1_chip_sweep_spec_")) / "spec",
+        SWEEP_ENV_STEPS)))
+    env_cfg = dataclasses.replace(run.env, num_envs=None)
+    ppo = dataclasses.replace(run.ppo, lr_schedule=None,
+                              entropy_coeff_schedule=None)
+    kernel = _population_kernel(env_cfg, ppo.num_envs, len(members), device)
+    _emit({"phase": "sweep_kernel", **kernel})
+    eager, loops = _population_rollouts(env_cfg, ppo, members, device)
+    _emit({"phase": "sweep_rollout", "n": len(members) * ppo.num_envs,
+           "frames": ppo.rollout_length, **loops})
+    solo = _members_against_solo_runs(env_cfg, ppo, members, eager, device)
+    _emit({"phase": "sweep_members", **solo})
+    adam = _adam_steps(env_cfg, ppo, members, eager, device)
+    _emit({"phase": "sweep_adam", **adam})
+    cli = _sweep_cli(env_cfg, ppo, members, device)
+    result = {"phase": "sweep", **cli, "kernel": kernel, "rollout": loops,
+              "members_against_solo": solo, "adam": adam}
+    _emit(result)
     return result
 
 
@@ -1700,8 +2056,9 @@ def main(device=None) -> int:
     analysis_launches, analysis_err = _phase_analysis(run, device, steps)
     r5_launches = _phase_scoring_r5(device, steps)
 
-    # 5. training through the Trainer
+    # 5. training through the Trainer; 5a. a population through the sweep
     training = _phase_training(device)
+    sweep = _phase_sweep(device)
 
     # 6. the bench's env metric through its entry point
     rollout_random.launches = 0
@@ -1746,7 +2103,10 @@ def main(device=None) -> int:
                             autoreset_err, autoreset_t)
     autoreset_entry.update(
         frame_ms=training["rollout_loops"]["frame_ms"],
-        capture_s=training["rollout_loops"]["capture_s"])
+        capture_s=training["rollout_loops"]["capture_s"],
+        launches_by_path={"training": training["launches"],
+                          "sweep": sweep["launches"]},
+        population_frame_ms=sweep["rollout"]["frame_ms"])
     _emit({"kernels": [
         actions_entry,
         autoreset_entry,

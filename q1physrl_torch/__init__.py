@@ -12,8 +12,8 @@ imports), holding the same modules in PyTorch's idiom:
 - ``analyse``         the zero-start scoring instrument, ``eval_sim`` and
                       the trajectory analysis (counterfactual sweep,
                       plots, key overlay, demo parsing)
-- ``algo``            run configs, PPO, checkpoints, the training driver
-                      and the evaluation CLI
+- ``algo``            run configs, PPO, checkpoints, the training driver,
+                      population sweeps and the evaluation CLI
 - ``parallel``        data-parallel training over ``torch.distributed``:
                       process groups, the env axis split by rank, the
                       explicit data-parallel iteration

@@ -1,5 +1,5 @@
-"""Run configuration, PPO, checkpoints, the training driver and the
-evaluation CLI."""
+"""Run configuration, PPO, checkpoints, the training driver, population
+sweeps and the evaluation CLI."""
 
 from .config import PPOConfig, RunConfig, load_run_config
 

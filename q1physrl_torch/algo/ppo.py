@@ -51,6 +51,7 @@ import torch
 
 from ..env import core as env_core
 from ..env.config import Config as EnvConfig
+from ..models.distributions import draw
 from ..models.policy import Policy, action_dist
 from ..ops.env_rollout import rollout_actions_autoreset
 from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
@@ -61,8 +62,8 @@ from .config import PPOConfig
 
 __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
            "Trajectory", "init_train_state", "RolloutLoop", "rollout",
-           "compute_gae",
-           "ppo_loss", "loss_and_stats", "aux_from_stats", "adam_update",
+           "generator_ids", "compute_gae", "ppo_loss", "loss_terms",
+           "loss_and_stats", "aux_from_stats", "adam_update",
            "sgd_epochs", "update_kl_coeff", "standardize", "flat_batch",
            "iteration_coeffs", "episode_metrics", "learn", "next_state",
            "train_iter")
@@ -73,7 +74,8 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # TF AdamOptimizer defaults
 @dataclasses.dataclass
 class EpisodeStats:
     """Running per-env episode accumulators + finished-episode scalars, all
-    on the device."""
+    on the device.  A population's (``algo/population.py``) holds the
+    scalars per member, (P,), over P members' envs, member-major."""
 
     ep_return: torch.Tensor    # (N,) running return of the live episode
     ep_len: torch.Tensor       # (N,) int32
@@ -85,17 +87,19 @@ class EpisodeStats:
     zs_ret_sum: torch.Tensor   # () float32
 
     @classmethod
-    def zeros(cls, n: int, device="cpu", ep_return=None, ep_len=None):
+    def zeros(cls, n: int, device="cpu", ep_return=None, ep_len=None,
+              members: Optional[int] = None):
         """Fresh accumulators; ``ep_return``/``ep_len`` carry the live
-        episodes over when given."""
-        z = lambda: torch.zeros((), dtype=torch.float32, device=device)
+        episodes over when given; ``members``: P, for a population's."""
+        shape = () if members is None else (members,)
+        z = lambda: torch.zeros(shape, dtype=torch.float32, device=device)
         return cls(
             ep_return=(torch.zeros(n, dtype=torch.float32, device=device)
                        if ep_return is None else ep_return),
             ep_len=(torch.zeros(n, dtype=torch.int32, device=device)
                     if ep_len is None else ep_len),
             finished=z(), ret_sum=z(),
-            ret_max=torch.full((), -torch.inf, dtype=torch.float32,
+            ret_max=torch.full(shape, -torch.inf, dtype=torch.float32,
                                device=device),
             len_sum=z(), zs_finished=z(), zs_ret_sum=z())
 
@@ -114,17 +118,23 @@ class EpisodeStats:
         ep_len = self.ep_len + 1
         d = done.to(torch.float32)
         zs = d * zero_start.to(torch.float32)
+        if self.finished.dim():  # a population's: sums per member
+            members = self.finished.shape[0]
+            total = lambda x: x.view(members, -1).sum(-1)
+            top = lambda x: x.view(members, -1).amax(-1)
+        else:
+            total, top = torch.sum, torch.max
         return EpisodeStats(
             ep_return=torch.where(done, 0.0, ep_return),
             ep_len=torch.where(done, 0, ep_len),
-            finished=self.finished + d.sum(),
-            ret_sum=self.ret_sum + torch.where(done, ep_return, 0.0).sum(),
+            finished=self.finished + total(d),
+            ret_sum=self.ret_sum + total(torch.where(done, ep_return, 0.0)),
             ret_max=torch.maximum(
                 self.ret_max,
-                torch.where(done, ep_return, -torch.inf).max()),
-            len_sum=self.len_sum + (d * ep_len).sum(),
-            zs_finished=self.zs_finished + zs.sum(),
-            zs_ret_sum=self.zs_ret_sum + (zs * ep_return).sum(),
+                top(torch.where(done, ep_return, -torch.inf))),
+            len_sum=self.len_sum + total(d * ep_len),
+            zs_finished=self.zs_finished + total(zs),
+            zs_ret_sum=self.zs_ret_sum + total(zs * ep_return),
         )
 
 
@@ -254,12 +264,16 @@ class RolloutLoop(FrameLoop):
     frame is captured once as a CUDA graph against the policy's parameters,
     which Adam and ``load_state_dict`` update in place, and replayed once
     per frame (``utils/cuda_graph.py``).  :func:`rollout` keeps its loops
-    in ``_LOOPS``, so the iterations of a run reuse one capture.
+    in ``_LOOPS``, so the iterations of a run reuse one capture.  A tuple
+    of P generators with a ``StackedPolicy`` runs a population's envs
+    (``algo/population.py``): member i's draws come from generator i.
     """
 
     def __init__(self, env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
-                 generator: torch.Generator, n: int, device, shard=None):
-        super().__init__(device, (generator,),
+                 generator, n: int, device, shard=None):
+        generators = generator if isinstance(generator, tuple) else (
+            generator,)
+        super().__init__(device, generators,
                          (rollout_actions_autoreset,
                           sharded_rollout_actions_autoreset))
         self.env_cfg, self.ppo, self.policy = env_cfg, ppo, policy
@@ -290,10 +304,8 @@ class RolloutLoop(FrameLoop):
         dist = action_dist(cfg, logits)
         ka, ya = dist.sample(self.generator, self.shard)
         logp = dist.logp(ka, ya)
-        draw = dict(generator=self.generator, dtype=torch.float32,
-                    device=self.device)
-        ru = (torch.rand((5, n), **draw) if self.shard is None
-              else self.shard.draw(torch.rand, (5, n), 1, **draw))
+        ru = draw(torch.rand, (5, n), self.generator, 1, self.shard,
+                  dtype=torch.float32, device=self.device)
         self.zero_start.copy_(state.zero_start)
         self.env_step(cfg, state, ka[None], ya[None], ru[None],
                       out=(state, self.rewards, self.dones))
@@ -352,10 +364,17 @@ def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     """
     n, device = env_state.num_envs, env_state.yaw.device
     key = (env_cfg, ppo, n, shard, device, distributed.is_initialized(),
-           id(policy), param_addresses(policy), id(generator))
+           id(policy), param_addresses(policy), generator_ids(generator))
     loop = _LOOPS.get(key, lambda: RolloutLoop(env_cfg, ppo, policy,
                                                generator, n, device, shard))
     return loop.rollout(env_state, stats, driver)
+
+
+def generator_ids(generator) -> tuple:
+    """The identities of a generator, or of a tuple of them (a loop's
+    capture is bound to them)."""
+    generators = generator if isinstance(generator, tuple) else (generator,)
+    return tuple(id(g) for g in generators)
 
 
 def compute_gae(ppo: PPOConfig, reward, done, value, bootstrap_value):
@@ -377,20 +396,17 @@ def compute_gae(ppo: PPOConfig, reward, done, value, bootstrap_value):
 _AUX_MEANS = ("policy_loss", "vf_loss", "kl", "entropy")
 
 
-def loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
-                   batch: Batch, kl_coeff, entropy_coeff=None,
-                   scale: float = 1.0):
-    """The loss of :func:`ppo_loss` times ``scale``, and its statistics as
-    one detached (8,) tensor: the means of -surrogate, the value loss, the
-    KL and the entropy, then the mean and variance (over N) of the value
-    targets and of the value residuals (see :func:`aux_from_stats`)."""
-    if entropy_coeff is None:
-        entropy_coeff = ppo.entropy_coeff
+def loss_terms(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+               batch: Batch):
+    """The per-row terms of RLLib's PPOLoss on a batch whose rows are its
+    last axis (a population's: (P, B, ...)): (surrogate, action KL, value
+    loss, entropy, value prediction)."""
     logits, value = policy(batch.obs)
     dist = action_dist(env_cfg, logits)
     behaviour_dist = action_dist(env_cfg, batch.logits)
 
-    curr_logp = dist.logp(batch.key_actions.T, batch.yaw_actions)
+    curr_logp = dist.logp(batch.key_actions.movedim(-1, 0),
+                          batch.yaw_actions)
     logp_ratio = torch.exp(curr_logp - batch.logp)
     action_kl = behaviour_dist.kl(dist)
     entropy = dist.entropy()
@@ -406,7 +422,20 @@ def loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                                            ppo.vf_clip_param)
     vf_loss2 = torch.square(vf_clipped - batch.value_target)
     vf_loss = torch.maximum(vf_loss1, vf_loss2)
+    return surrogate, action_kl, vf_loss, entropy, value
 
+
+def loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+                   batch: Batch, kl_coeff, entropy_coeff=None,
+                   scale: float = 1.0):
+    """The loss of :func:`ppo_loss` times ``scale``, and its statistics as
+    one detached (8,) tensor: the means of -surrogate, the value loss, the
+    KL and the entropy, then the mean and variance (over N) of the value
+    targets and of the value residuals (see :func:`aux_from_stats`)."""
+    if entropy_coeff is None:
+        entropy_coeff = ppo.entropy_coeff
+    surrogate, action_kl, vf_loss, entropy, value = loss_terms(
+        env_cfg, ppo, policy, batch)
     total = torch.mean(-surrogate + kl_coeff * action_kl
                        + ppo.vf_loss_coeff * vf_loss
                        - entropy_coeff * entropy)

@@ -18,7 +18,11 @@ Closed forms:
 Sampling draws from an explicit ``torch.Generator``; given an env shard
 (``parallel.mesh.EnvShard``), it draws for the whole batch along the leading
 env axis and keeps the shard's rows, so that each rank of a process group
-draws what one process would for those envs.
+draws what one process would for those envs.  Given a tuple of P
+generators (a population, ``algo/population.py``), the leading env axis is
+P members' envs, member-major, and member i's rows are drawn from
+generator i at the shape one member's batch has: each member draws what a
+run of its own would.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import math
 
 import torch
 
-__all__ = ("Categorical", "GaussianSquashedGaussian", "SMALL_NUMBER",
+__all__ = ("Categorical", "GaussianSquashedGaussian", "draw", "SMALL_NUMBER",
            "MIN_LOG_NN_OUTPUT", "MAX_LOG_NN_OUTPUT")
 
 # RLLib 0.8.4 numeric constants (ray.rllib.utils.numpy).
@@ -39,13 +43,32 @@ MAX_LOG_NN_OUTPUT = 2.0
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
-def _draw(fn, like, generator, shard=None):
-    """``fn`` (``torch.rand``/``torch.randn``) of ``like``'s shape, dtype
-    and device; with a shard, drawn for the global batch on axis 0."""
-    kwargs = dict(generator=generator, dtype=like.dtype, device=like.device)
+def draw(fn, shape, generator, dim: int = 0, shard=None, **kwargs):
+    """``fn(shape, generator=generator, **kwargs)`` (``torch.rand``,
+    ``torch.randn``) with ``dim`` the env axis: with a shard, drawn for the
+    global batch and cut to the shard; with a tuple of P generators, P
+    member blocks of ``shape[dim] / P`` envs joined on ``dim``, block i
+    drawn from generator i."""
+    if isinstance(generator, tuple):
+        if shard is not None:
+            raise ValueError("a population's draws are not sharded")
+        members = len(generator)
+        if shape[dim] % members:
+            raise ValueError(f"axis {dim} of {tuple(shape)} does not split "
+                             f"into {members} members")
+        block = list(shape)
+        block[dim] //= members
+        return torch.cat([fn(block, generator=g, **kwargs)
+                          for g in generator], dim)
     if shard is None:
-        return fn(like.shape, **kwargs)
-    return shard.draw(fn, like.shape, 0, **kwargs)
+        return fn(shape, generator=generator, **kwargs)
+    return shard.draw(fn, shape, dim, generator=generator, **kwargs)
+
+
+def _draw(fn, like, generator, shard=None):
+    """:func:`draw` of ``like``'s shape, dtype and device on axis 0."""
+    return draw(fn, like.shape, generator, 0, shard, dtype=like.dtype,
+                device=like.device)
 
 
 def _normal_logpdf(x, mean, std):

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 __all__ = ("load_rllib_checkpoint", "import_policy_params", "params_from_jax",
-           "adam_state_from_jax")
+           "adam_state_from_jax", "population_params_from_jax",
+           "population_adam_state_from_jax")
 
 _POLICY_LAYERS = ("fc_1", "fc_2", "fc_out")
 _VALUE_LAYERS = ("fc_value_1", "fc_value_2", "value_out")
@@ -65,13 +66,13 @@ def load_rllib_checkpoint(path: str) -> dict:
 
 
 def _state_dict(towers, dtype=torch.float32) -> dict:
-    """{"pi"/"vf": [(W (in, out), b), ...]} -> a :class:`Policy` state dict
-    of ``dtype``."""
+    """{"pi"/"vf": [(W (..., in, out), b), ...]} -> a :class:`Policy` state
+    dict of ``dtype`` (with the leading axes kept: a stacked one)."""
     sd = {}
     for tower, layers in towers.items():
         for i, (w, b) in enumerate(layers):
             sd[f"{tower}.layers.{i}.weight"] = torch.tensor(
-                np.asarray(w).T, dtype=dtype)
+                np.swapaxes(np.asarray(w), -1, -2), dtype=dtype)
             sd[f"{tower}.layers.{i}.bias"] = torch.tensor(
                 np.asarray(b), dtype=dtype)
     return sd
@@ -106,3 +107,19 @@ def adam_state_from_jax(mu, nu, count, dtype=torch.float32) -> dict:
     by the :class:`Policy` parameter names."""
     return {"mu": params_from_jax(mu, dtype), "nu": params_from_jax(nu, dtype),
             "count": int(count)}
+
+
+def population_params_from_jax(params, dtype=torch.float32) -> dict:
+    """The JAX package's params of a population (its vmapped pytree: every
+    leaf with a leading member axis P) -> a stacked state dict, each tensor
+    ``(P, *shape)`` under :class:`Policy`'s names (``StackedPolicy``'s
+    layout)."""
+    return params_from_jax(params, dtype)
+
+
+def population_adam_state_from_jax(mu, nu, count, dtype=torch.float32) -> dict:
+    """Adam's stacked moments and the (P,) update counts of a population
+    -> ``{"mu", "nu", "count"}``: stacked state dicts and a list of P
+    ints."""
+    return {"mu": params_from_jax(mu, dtype), "nu": params_from_jax(nu, dtype),
+            "count": [int(c) for c in np.asarray(count).reshape(-1)]}

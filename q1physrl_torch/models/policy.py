@@ -7,11 +7,18 @@ GaussianSquashedGaussian for the continuous mouse axis (or a Categorical
 for a discrete one), consuming a flat logits vector in tuple-space order.
 Actions use the env core's layout: keys as a (K, N) int32 tensor, yaw as an
 (N,) float tensor.
+
+:class:`StackedPolicy` holds P members' towers for a population
+(``algo/population.py``): each weight ``(P, out, in)`` and bias ``(P, out)``
+is a view of one ``(P, D)`` buffer, so that an optimizer step on all P
+members is a few operations on that buffer, and the forward is one batched
+product per layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -21,7 +28,8 @@ from ..env.config import Config
 from .distributions import Categorical, GaussianSquashedGaussian
 from .mlp import MLP
 
-__all__ = ("Policy", "ActionDist", "action_dist", "OBS_DIM", "HIDDENS")
+__all__ = ("Policy", "StackedPolicy", "ActionDist", "action_dist", "OBS_DIM",
+           "HIDDENS")
 
 OBS_DIM = 6
 HIDDENS = (256, 256)
@@ -40,6 +48,113 @@ class Policy(nn.Module):
     def forward(self, obs):
         """obs (N, 6) -> (logits (N, num_action_logits), value (N,))."""
         return self.pi(obs), self.vf(obs)[..., 0]
+
+
+class _StackedLinear(nn.Module):
+    """P members' ``nn.Linear`` of one layer: ``weight`` (P, out, in) and
+    ``bias`` (P, out), parameters that are views of the stacked buffer."""
+
+    def __init__(self, weight, bias):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x):
+        """x (P, n, in) -> (P, n, out)."""
+        return torch.baddbmm(self.bias.unsqueeze(1), x,
+                             self.weight.transpose(1, 2))
+
+
+class _StackedMLP(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        *hidden, out = self.layers
+        for layer in hidden:
+            x = torch.tanh(layer(x))
+        return out(x)
+
+
+class StackedPolicy(nn.Module):
+    """The towers of P members, with :class:`Policy`'s parameter names.
+
+    ``flat`` (P, D) holds member i's parameters in row i, in the order of
+    ``Policy.named_parameters()``; every parameter is a view of it, so an
+    in-place change of ``flat`` is one of the parameters (and the other way
+    round).  The buffer is made on its device: moving the module would cut
+    the views loose, so :meth:`to` is not for it.
+    """
+
+    def __init__(self, cfg: Config, members: int, device=None):
+        super().__init__()
+        names = Policy(cfg, device="meta").named_parameters()
+        self.shapes = {k: tuple(p.shape) for k, p in names}
+        self.members = members
+        self.flat = torch.zeros((members, sum(
+            math.prod(s) for s in self.shapes.values())), device=device)
+        views = self.views(self.flat)
+        towers = {}
+        for tower in ("pi", "vf"):
+            towers[tower] = _StackedMLP(
+                _StackedLinear(views[f"{tower}.layers.{i}.weight"],
+                               views[f"{tower}.layers.{i}.bias"])
+                for i in range(len(HIDDENS) + 1))
+        self.pi, self.vf = towers["pi"], towers["vf"]
+
+    def views(self, flat) -> dict:
+        """Views of a (P, D) tensor of this layout (the parameters, or
+        moments and gradients alike), by parameter name, each (P, *shape)."""
+        out, offset = {}, 0
+        for name, shape in self.shapes.items():
+            size = math.prod(shape)
+            out[name] = flat[:, offset:offset + size].view(
+                (flat.shape[0],) + shape)
+            offset += size
+        return out
+
+    def flatten(self, tensors) -> torch.Tensor:
+        """(P, *shape) tensors in parameter order -> one (P, D) tensor."""
+        return torch.cat([x.reshape(self.members, -1) for x in tensors], 1)
+
+    @classmethod
+    def from_policies(cls, cfg: Config, policies) -> "StackedPolicy":
+        """The members' towers stacked in the order given, on the first
+        policy's device; the values are copied."""
+        p0 = next(policies[0].parameters())
+        stacked = cls(cfg, len(policies), p0.device)
+        stacked.load_members([p.state_dict() for p in policies])
+        return stacked
+
+    def load_members(self, state_dicts):
+        """Member i's parameters from ``state_dicts[i]`` (a
+        :class:`Policy` state dict)."""
+        with torch.no_grad():
+            for i, sd in enumerate(state_dicts):
+                for name, view in self.views(self.flat).items():
+                    view[i].copy_(sd[name])
+
+    def member_state_dict(self, i: int) -> dict:
+        """Member ``i`` as a :class:`Policy` state dict (copies)."""
+        return {k: v[i].detach().clone()
+                for k, v in self.views(self.flat).items()}
+
+    def member_policy(self, cfg: Config, i: int) -> Policy:
+        """Member ``i`` as a :class:`Policy` on the buffer's device."""
+        policy = Policy(cfg, device=self.flat.device)
+        policy.load_state_dict(self.member_state_dict(i))
+        return policy
+
+    def forward(self, obs):
+        """obs (P, n, 6) -> (logits (P, n, L), value (P, n)); obs (P * n,
+        6), member-major -> (logits (P * n, L), value (P * n,))."""
+        x = obs if obs.dim() == 3 else obs.view(self.members, -1,
+                                                obs.shape[-1])
+        logits, value = self.pi(x), self.vf(x)[..., 0]
+        if obs.dim() == 3:
+            return logits, value
+        return logits.reshape(-1, logits.shape[-1]), value.reshape(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +176,11 @@ class ActionDist:
                                device=logits.device)
         return draw(self.yaw).to(logits.dtype)
 
-    def sample(self, generator: torch.Generator, shard=None):
+    def sample(self, generator, shard=None):
         """``shard``: an env shard whose rows to keep of draws made for the
-        whole batch (see ``distributions``)."""
+        whole batch; ``generator`` may be a tuple of P generators, one per
+        member of a population whose envs the rows are, member-major (see
+        ``distributions``)."""
         key_actions = torch.stack(
             [d.sample(generator, shard) for d in self.keys]).to(torch.int32)
         return key_actions, self._yaw_action(

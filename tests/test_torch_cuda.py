@@ -4,8 +4,9 @@ against its plain version and curand's, scoring on the card against the
 CPU, eval_sim and the counterfactual sweep on the card, a training
 iteration on the card; for data-parallel training, the generator's bits
 in two processes and the sharded rollouts of two gloo ranks on one card;
-and the scoring, eval_sim and PPO-rollout loops replayed from CUDA graphs
-against their eager drivers.
+the scoring, eval_sim and PPO-rollout loops replayed from CUDA graphs
+against their eager drivers; and a population's env launch, graphed
+rollout and iterations.
 
 These tests need an NVIDIA card and nvcc; without them they skip (the
 kernels have no CPU mode).  Run them on the card with
@@ -555,3 +556,96 @@ def test_a_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         graph.run(3)
     assert graph.graph is None
+
+
+# --- a population (algo/population.py) ---------------------------------------
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_autoreset_at_the_population_shape(cuda, in_place):
+    """rollout_actions_autoreset at the population shape of
+    configs/sweep_r5_repl2.yml (4 members x 400 envs, T=1), plain and
+    ``out=`` forms: equal to the plain version and to each member's own
+    launch on its 400 envs, to the bit, over frames where episodes end."""
+    from q1physrl_torch.parallel.mesh import EnvShard, shard_env_axis
+
+    cfg = dataclasses.replace(RUN4, zero_start_prob=0.3)
+    members, n, steps = 4, 400, 100
+    state, ka, ya = _case(cfg, members * n, steps, 11, cuda)
+    ru = torch.rand((steps, 5, members * n), device=cuda)
+    want = env_rollout.rollout_actions_autoreset_plain(cfg, state, ka, ya,
+                                                       ru)
+    if in_place:
+        got = (state.clone(), torch.empty((steps, members * n), device=cuda),
+               torch.empty((steps, members * n), dtype=torch.bool,
+                           device=cuda))
+        env_rollout.rollout_actions_autoreset(cfg, got[0], ka, ya, ru,
+                                              out=got)
+    else:
+        got = env_rollout.rollout_actions_autoreset(cfg, state, ka, ya, ru)
+    assert bool(want[2].any())
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _assert_states_equal(got[0], want[0])
+    for i in range(members):
+        shard = EnvShard(i, members, members * n)
+        part = env_rollout.rollout_actions_autoreset(
+            cfg, shard_env_axis(state, shard), shard.take(ka),
+            shard.take(ya), shard.take(ru))
+        assert torch.equal(part[1], shard.take(got[1]))
+        assert torch.equal(part[2], shard.take(got[2]))
+        _assert_states_equal(part[0], shard_env_axis(got[0], shard))
+
+
+def test_graphed_population_rollout_equals_eager(cuda):
+    """A population's rollout replayed from its CUDA graph: trajectory,
+    final state, per-member statistics, bootstrap value and every member's
+    generator equal the eager driver's to the bit; one launch on all the
+    members' envs per frame."""
+    from q1physrl_torch.algo import population
+
+    cfg = dataclasses.replace(RUN4, num_envs=None, zero_start_prob=0.3)
+    ppo_cfg = PPOConfig(num_envs=256, rollout_length=9, num_sgd_iter=1,
+                        sgd_minibatch_size=256)
+    outs = {}
+    for driver in ("eager", "graph"):
+        ps = population.init_population((5, 6, 7), cfg, ppo_cfg, cuda)
+        ps.env_state.time_remaining = ps.env_state.time_remaining * 0.05
+        before = _launches()
+        out = population.rollout(cfg, ppo_cfg, ps.policy, ps.env_state,
+                                 ps.stats, ps.generators, driver=driver)
+        assert _rose(before, rollout_actions_autoreset=9)
+        outs[driver] = out + ([g.get_state() for g in ps.generators],)
+    (s0, st0, tr0, b0, g0), (s1, st1, tr1, b1, g1) = (outs["eager"],
+                                                       outs["graph"])
+    assert bool(tr0.done.any()) and st0.finished.shape == (3,)
+    _assert_states_equal(s1, s0)
+    for f in dataclasses.fields(st0):
+        assert torch.equal(getattr(st1, f.name), getattr(st0, f.name)), f
+    for k in tr0._fields:
+        assert torch.equal(getattr(tr1, k), getattr(tr0, k)), k
+    assert torch.equal(b1, b0)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g0))
+
+
+def test_population_iteration_on_card(cuda, tmp_path):
+    """Two population iterations through the sweep's trainer on the card:
+    finite metrics, params moved, the stacked checkpoint restores."""
+    from q1physrl_torch.algo import checkpoint as ckpt
+    from q1physrl_torch.algo import population
+    from q1physrl_torch.algo.config import RunConfig
+    from q1physrl_torch.algo.sweep import MemberSpec, PopulationTrainer
+
+    run = RunConfig(env=dataclasses.replace(RUN4, num_envs=None),
+                    ppo=PPOConfig(num_envs=64, rollout_length=16,
+                                  num_sgd_iter=2, sgd_minibatch_size=256))
+    members = [MemberSpec(seed=1), MemberSpec(seed=2, lr=((0, 1e-4),))]
+    pt = PopulationTrainer(run, members, str(tmp_path), device=cuda)
+    start = pt.ps.policy.flat.clone()
+    pt.train(max_env_steps=2 * run.ppo.batch_size)
+    assert pt.ps.iteration == [2, 2]
+    assert all(not torch.equal(pt.ps.policy.flat[i], start[i])
+               for i in range(2))
+    fresh = population.init_population((1, 2), run.env, run.ppo, cuda)
+    back = ckpt.restore_population(
+        ckpt.latest_checkpoint(str(tmp_path / "stacked")), fresh)
+    assert torch.equal(back.policy.flat, pt.ps.policy.flat)

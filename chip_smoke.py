@@ -58,8 +58,34 @@ Phases, each printing one JSON line:
                the stochastic score against ``repl_r5/eval_summary.json``,
                the deterministic one against the JAX package's on the CPU;
                its loop reuses phase 4's capture, the weights copied in.
+4c. demo     — the demo path, each line with the card's name and power
+               limit: ``export``, the make-demo CLI (``mkdemo.main``) on
+               tpu_pb under run4 into a temporary .dem: one rollout_actions
+               launch per frame of its eval_sim, the demo read alike by
+               the port's parser and its C++ binding, its records
+               consistent with the EvalSimResult, the corrected finish
+               within 2 frames of the JAX package's CPU export
+               (DEMO_EXPORT_FINISH; behaviour.json's printed beside it);
+               ``lockstep``, the CLI with ``--lockstep`` on round 5's winner
+               against the port's LockstepServer on the card over UDP: one
+               launch per policy frame, the frames and corrected finish
+               within 2 frames of the JAX package's CPU run
+               (DEMO_LOCKSTEP_*; winner_lockstep.json printed beside them),
+               then the loop again with its launches recorded: the demo
+               equal byte for byte, each launch replayed and held to the
+               plain version to the bit, the yaw sent equal to the
+               kernel's; ``engine``, ``mkdemo.make_demo`` against a stub
+               engine (STUB) serving the port's server on the card on a
+               free port: at least 700 frames at 1/72 s, stopped by
+               SIGINT; ``gym``, ``VectorPhysEnv`` on the card (4,096 envs,
+               100 steps), each step held to the same step on the CPU.
+               Its ``finalize`` runs in phase 5, on that phase's
+               checkpoint: ``scripts/torch_finalize_run.py``, every bundle
+               file, finite scores, the demo read alike by both parsers,
+               behaviour.json's keys.
 5. training  — the port's Trainer on ``configs/run_tpu_e3.yml`` (8,192 envs x
-               96 frames, minibatch 128, 3 epochs, full-width towers) for one
+               96 frames, minibatch 128, full-width towers; cut in depth to
+               TRAIN_SGD_ITER of its 3 epochs) for one
                iteration into a temporary directory: one launch of
                rollout_actions_autoreset per frame, finite metrics, params
                moved, a checkpoint written that restores; seconds per
@@ -83,7 +109,8 @@ Phases, each printing one JSON line:
                within MEMBER_TOL); the stacked Adam step
                (every member's minibatch of 128 rows) against the solo one,
                host ms, card-busy ms and kernels per step; then one
-               iteration through the sweep CLI into a temporary directory:
+               iteration through the sweep CLI (cut in depth to
+               SWEEP_SGD_ITER of its 30 epochs) into a temporary directory:
                125 launches, a finite log row per member, params moved, a
                stacked checkpoint that restores, seconds split into rollout
                and learning.
@@ -196,6 +223,24 @@ R5_STD, R5_MAX = 26.892921447753906, 5834.21875
 R5_TPU_DETERMINISTIC = 5799.24169921875
 R5_DETERMINISTIC, R5_DETERMINISTIC_TOL = 5828.84716796875, 10.0
 
+# Phase 4c, the demo path.  The corrected finish of the JAX package's
+# export_sim_demo of tpu_pb on the CPU (data/checkpoints/tpu_pb/
+# behaviour.json records 7.8833, printed beside the card's), and the frames
+# and corrected finish of its lockstep run of round 5's winner on the CPU
+# (repl_r5/winner_lockstep.json, printed beside them, records the same, on
+# an unrecorded chip); tests/test_torch_mkdemo.py,
+# test_chip_smoke_constants_are_the_jax_runs, checks these constants.  The
+# card's demos are held to them within 2 frames: the policy's products
+# round otherwise on the card, and the lockstep server's physics uses the
+# card's sinf/cosf.
+DEMO_EXPORT_FINISH = 7.883333333332915
+DEMO_LOCKSTEP_FRAMES, DEMO_LOCKSTEP_FINISH = 723, 7.994444510671828
+DEMO_FINISH_TOL = 2 / 72
+# The stub engine's lockstep episode: at least this many frames.
+DEMO_ENGINE_FRAMES = 700
+# The gym shim on the card against the CPU: 4,096 envs for 100 steps.
+GYM_SHAPE = (4096, 100)
+
 # Kernel vs plain version (as tests/test_pallas_rollout.py compares the
 # Pallas kernel with its scan).
 REWARD_RTOL, REWARD_ATOL = 1e-5, 1e-4
@@ -222,10 +267,13 @@ RANDOM_SHAPES = {"throughput": (65536, 128, 20, 2),
 ZERO_START_RESETS = 1 << 20
 BENCH_ENV = dict(n=1 << 20, t=720, reps=3)
 # One training iteration: at run_tpu_e3's 18,432 Adam steps of 128 rows an
-# iteration took 115-197 s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+# iteration took 115-280 s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
 # Findings), over the 150 s at which the smoke run keeps to one; the
-# geometry and widths stay full.
+# geometry and widths stay full, and the iteration is cut in depth to
+# TRAIN_SGD_ITER epochs (6,144 Adam steps), since the Adam steps run on the
+# host's clock and a slow host took the whole script to 910 s of its 1,200.
 TRAIN_ITERATIONS = 1
+TRAIN_SGD_ITER = 1
 
 # The sweep phase: round 5's gated cohort (4 members of 400 envs x 125
 # frames, minibatch 128, 30 epochs) at full width, one iteration through
@@ -233,6 +281,9 @@ TRAIN_ITERATIONS = 1
 # ADAM_STEPS steps, profiled over ADAM_PROFILED.
 SWEEP_YAML = ROOT / "configs" / "sweep_r5_repl2.yml"
 SWEEP_ENV_STEPS = 50_000
+# The sweep CLI's iteration cut in depth, for the reason TRAIN_SGD_ITER is:
+# 3 of its 30 epochs (1,170 Adam steps on each member, not 11,700).
+SWEEP_SGD_ITER = 3
 ADAM_STEPS, ADAM_PROFILED = 200, 10
 # A member's rollout against a solo run of its seed, (rtol, atol) by field:
 # the stacked products sum in another order than a solo run's, so the
@@ -743,9 +794,9 @@ def _phase_random(run, device):
     return timings, max_err
 
 
-def _phase_training(device):
+def _phase_training(device, card):
     """The Trainer at the full run_tpu_e3 geometry for TRAIN_ITERATIONS
-    iterations."""
+    iterations; then phase 4c's ``finalize`` on its checkpoint."""
     from q1physrl_torch.algo import checkpoint as ckpt
     from q1physrl_torch.algo.config import load_run_config
 
@@ -754,14 +805,17 @@ def _phase_training(device):
                **_rollout_loops(device, TRAIN_YAML)}
     _emit(rollout)
     with tempfile.TemporaryDirectory(prefix="q1_chip_smoke_") as tmp:
+        run = load_run_config(str(TRAIN_YAML))
         run = dataclasses.replace(
-            load_run_config(str(TRAIN_YAML)), checkpoint_dir=tmp,
-            auto_resume=False, max_iterations=iterations)
+            run, ppo=dataclasses.replace(run.ppo,
+                                         num_sgd_iter=TRAIN_SGD_ITER),
+            checkpoint_dir=tmp, auto_resume=False, max_iterations=iterations)
         trained = _train_once(run, device)
         records = [json.loads(line) for line in
                    (Path(tmp) / "logs" / "metrics.jsonl").read_text()
                    .splitlines()]
         latest = Path(ckpt.latest_checkpoint(tmp)).name
+        finalize = _demo_finalize(tmp, device, card)
     per_iter = [{"rollout_seconds": r["rollout_seconds"],
                  "learn_seconds": r["learn_seconds"],
                  "train_steps_per_sec": run.ppo.batch_size
@@ -772,13 +826,15 @@ def _phase_training(device):
     launches = trained["launches"]["rollout_actions_autoreset"]
     result = {"phase": "training", "config": str(TRAIN_YAML.relative_to(ROOT)),
               "iterations": iterations, "seconds": trained["seconds"],
+              "num_sgd_iter": run.ppo.num_sgd_iter,
               "batch_size": run.ppo.batch_size,
               "adam_steps_per_iteration": run.ppo.num_sgd_iter
               * run.ppo.num_minibatches,
               "launches": launches, "per_iteration": per_iter,
               "checkpoint": latest,
               "checkpoint_restores": trained["restores"],
-              "params_moved": trained["moved"], "rollout_loops": rollout}
+              "params_moved": trained["moved"], "rollout_loops": rollout,
+              "finalize_launches": finalize["launches"]}
     _emit(result)
     if len(records) != iterations:
         raise RuntimeError("training: missing iterations")
@@ -789,12 +845,18 @@ def _phase_training(device):
 
 
 def _sweep_yaml(out_dir, max_env_steps):
-    """A copy of SWEEP_YAML with its base resolved, writing to ``out_dir``
-    and stopping at ``max_env_steps``; returns its path."""
+    """A copy of SWEEP_YAML writing to ``out_dir`` and stopping at
+    ``max_env_steps``, its base a copy with SWEEP_SGD_ITER epochs; returns
+    its path."""
     import yaml
 
     spec = yaml.safe_load(SWEEP_YAML.read_text())
-    spec.update(base=str(ROOT / spec["base"]), out_dir=str(out_dir),
+    base = yaml.safe_load((ROOT / spec["base"]).read_text())
+    base["ppo"]["num_sgd_iter"] = SWEEP_SGD_ITER
+    base_path = Path(out_dir).parent / f"{Path(out_dir).name}_base.yml"
+    base_path.parent.mkdir(parents=True, exist_ok=True)
+    base_path.write_text(yaml.safe_dump(base))
+    spec.update(base=str(base_path), out_dir=str(out_dir),
                 max_env_steps=max_env_steps)
     path = Path(out_dir).parent / f"{Path(out_dir).name}.yml"
     path.write_text(yaml.safe_dump(spec))
@@ -1054,6 +1116,7 @@ def _sweep_cli(env_cfg, ppo, members, device):
                  for r in rows)
     result = {"config": str(SWEEP_YAML.relative_to(ROOT)),
               "max_env_steps": SWEEP_ENV_STEPS, "seconds": seconds,
+              "num_sgd_iter": ppo.num_sgd_iter,
               **trainer.seconds, "iterations": ps.iteration,
               "env_steps": ps.env_steps,
               "adam_steps_per_iteration": ppo.num_sgd_iter
@@ -1425,6 +1488,367 @@ def _phase_scoring_r5(device, steps):
                            f"is not within {R5_DETERMINISTIC_TOL} of the "
                            f"JAX package's on the CPU, {R5_DETERMINISTIC}")
     return launches
+
+
+# --- phase 4c: the demo path ----------------------------------------------
+
+
+# An executable stand-in for quakespasm: serves the port's lockstep server on
+# the ``-port`` it is given (26000 without one) on ``device``, and on the
+# SIGINT that stops it writes the frames it served to ``<stub>.stopped``.
+STUB = """#!{python}
+import asyncio, sys
+from pathlib import Path
+sys.path.insert(0, {repo!r})
+from q1physrl_torch.utils.lockstep_server import LockstepServer
+
+async def main():
+    argv = sys.argv[1:]
+    port = int(argv[argv.index("-port") + 1]) if "-port" in argv else 26000
+    server = LockstepServer(device={device!r})
+    await server.start("127.0.0.1", port)
+    try:
+        await asyncio.sleep(3600)
+    except asyncio.CancelledError:
+        Path(sys.argv[0] + ".stopped").write_text(str(server.frames))
+        raise
+
+try:
+    asyncio.run(main())
+except KeyboardInterrupt:
+    pass
+"""
+
+
+def write_stub(directory, device) -> Path:
+    """:data:`STUB` as an executable ``quakespasm`` in ``directory``."""
+    import stat
+
+    stub = Path(directory) / "quakespasm"
+    stub.write_text(STUB.format(python=sys.executable, repo=str(ROOT),
+                                device=str(device)))
+    stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
+    return stub
+
+
+def _free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cross_parse(name, dem):
+    """The .dem through the port's reader and its C++ binding: equal
+    arrays and finish; returns the reader's (times, origins, yaws,
+    finish)."""
+    from q1physrl_torch import analyse, native
+
+    parsed = analyse.parse_demo(dem)
+    times, origins, yaws, finish = native.parse_demo(dem)
+    same = (np.array_equal(times, parsed[0])
+            and np.array_equal(origins, np.asarray(parsed[1], np.float32))
+            and np.array_equal(yaws, np.asarray(parsed[2], np.float32))
+            and finish == parsed[3])
+    if not same:
+        raise AssertionError(f"{name}: the two demo parsers disagree")
+    return parsed
+
+
+def _demo_export(device, card, steps, tmp):
+    """``export``: the make-demo CLI's simulated export of tpu_pb."""
+    from q1physrl_torch import mkdemo
+    from q1physrl_torch.ops.env_rollout import rollout_actions
+
+    dem = Path(tmp) / "tpu_pb.dem"
+    rollout_actions.launches = 0
+    (r, corrected), seconds = _seconds(lambda: mkdemo.main(
+        [str(RUN_YAML), str(CHECKPOINT), str(dem), "--device", str(device)]),
+        device)
+    launches = rollout_actions.launches
+    times, origins, yaws, _ = _cross_parse("export", dem)
+    # The demo against the EvalSimResult it was written from: TIME blocks
+    # at the trajectory's clock, origins in 13.3 fixed point (a 16-bit
+    # field: the writer clamps them to [-4,096, 4,095.875]) one record
+    # behind (record 0 carries the baseline), the view yaw as float32.
+    t, o, y = mkdemo.trajectory_from_result(r)
+    behind = np.clip(np.concatenate([o[:1], o[:-1]]), -4096, 4095.875)
+    consistent = (len(times) == len(t)
+                  and np.allclose(times, t, rtol=0, atol=1e-5)
+                  and np.allclose(origins, behind, rtol=0,
+                                  atol=1 / 16 + 1e-6)
+                  and np.array_equal(np.asarray(yaws, np.float32),
+                                     y.astype(np.float32)))
+    behaviour = json.loads((CHECKPOINT.parent / "behaviour.json").read_text())
+    out = {"phase": "demo_export", "card": card,
+           "checkpoint": str(CHECKPOINT.relative_to(ROOT)),
+           "export_s": seconds, "launches": launches, "frames": steps,
+           "demo_frames": len(times), "return": float(r.reward.sum()),
+           "corrected_finish": corrected,
+           "jax_cpu_corrected_finish": DEMO_EXPORT_FINISH,
+           "behaviour_json_corrected_finish":
+               behaviour["corrected_finish_time"],
+           "crossparse": True, "consistent_with_result": consistent}
+    _emit(out)
+    if launches != steps:
+        raise RuntimeError(f"demo export: expected one rollout_actions "
+                           f"launch per frame ({steps}), counted {launches}")
+    if not consistent:
+        raise AssertionError("demo export: the demo differs from the "
+                             "trajectory it was written from")
+    if corrected is None or not (abs(corrected - DEMO_EXPORT_FINISH)
+                                 <= DEMO_FINISH_TOL):
+        raise RuntimeError(f"demo export: corrected finish {corrected} is "
+                           f"not within 2 frames of the JAX package's "
+                           f"{DEMO_EXPORT_FINISH}")
+    return out
+
+
+def _replay_lockstep(run, record):
+    """Each recorded launch of the lockstep loop again through the kernel
+    and through its plain version on the same decoder state and actions,
+    to the bit; returns the largest difference (0.0; any other raises) and
+    whether every launch wrote the recorded yaw and the yaw sent equals
+    it, to the bit."""
+    import torch
+
+    from q1physrl_torch.ops.env_rollout import (rollout_actions,
+                                                rollout_actions_plain)
+
+    cfg = dataclasses.replace(run.env, num_envs=None)
+    err, yaw_sent = 0.0, True
+    for t, frame in enumerate(record):
+        args = (cfg, frame["state"], frame["key_actions"].unsqueeze(0),
+                frame["yaw_action"].unsqueeze(0))
+        got = rollout_actions(*args)
+        err = max(err, _compare(f"lockstep frame {t}", got,
+                                rollout_actions_plain(*args)))
+        kernel_yaw = frame["kernel_yaw"]
+        yaw_sent &= (torch.equal(got[0].yaw, kernel_yaw)
+                     and frame["sent"][0] == float(kernel_yaw[0]))
+    return err, yaw_sent
+
+
+def _demo_lockstep(device, card, tmp):
+    """``lockstep``: the make-demo CLI over the lockstep bridge on round
+    5's winner, then the same loop again with its launches recorded and
+    replayed."""
+    import asyncio
+
+    from q1physrl_torch import mkdemo
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.ops.env_rollout import rollout_actions
+
+    dem = Path(tmp) / "r5_lockstep.dem"
+    rollout_actions.launches = 0
+    _, seconds = _seconds(lambda: mkdemo.main(
+        ["--lockstep", str(RUN_YAML), str(R5_CHECKPOINT), str(dem),
+         "--device", str(device)]), device)
+    launches = rollout_actions.launches
+    times, _, _, finish = _cross_parse("lockstep", dem)
+    corrected = (finish + mkdemo.DEMO_TIME_CORRECTION - times[0]
+                 if finish is not None else None)
+
+    record = []
+    again = Path(tmp) / "r5_lockstep_again.dem"
+    asyncio.run(mkdemo.make_demo_lockstep(str(R5_CHECKPOINT), str(RUN_YAML),
+                                          str(again), device=device,
+                                          record=record))
+    rerun_same = again.read_bytes() == dem.read_bytes()
+    replay_err, yaw_sent = _replay_lockstep(load_run_config(str(RUN_YAML)),
+                                            record)
+    committed = json.loads((R5_CHECKPOINT.parent / "winner_lockstep.json")
+                           .read_text())
+    out = {"phase": "demo_lockstep", "card": card,
+           "checkpoint": str(R5_CHECKPOINT.relative_to(ROOT)),
+           "lockstep_s": seconds, "launches": launches,
+           "ms_per_frame": 1e3 * seconds / max(launches, 1),
+           "frames": len(times), "corrected_finish": corrected,
+           "jax_cpu": {"frames": DEMO_LOCKSTEP_FRAMES,
+                       "corrected_finish": DEMO_LOCKSTEP_FINISH},
+           "winner_lockstep_json": {
+               "frames": committed["frames"],
+               "corrected_finish": committed["corrected_finish"]},
+           "crossparse": True, "rerun_equals_bitwise": rerun_same,
+           "replayed_launches": len(record),
+           "replay_max_abs_err_vs_plain": replay_err,
+           "yaw_sent_equals_kernel_bitwise": yaw_sent}
+    _emit(out)
+    # One launch per policy frame: every TIME block but the spawn frame's.
+    if launches != len(times) - 1 or len(record) != launches:
+        raise RuntimeError(f"demo lockstep: expected one rollout_actions "
+                           f"launch per policy frame ({len(times) - 1}), "
+                           f"counted {launches} ({len(record)} recorded)")
+    if not (rerun_same and yaw_sent):
+        raise AssertionError("demo lockstep: a second run differs, or the "
+                             "yaw sent differs from the kernel's")
+    if (abs(len(times) - DEMO_LOCKSTEP_FRAMES) > 2 or corrected is None
+            or abs(corrected - DEMO_LOCKSTEP_FINISH) > DEMO_FINISH_TOL):
+        raise RuntimeError(f"demo lockstep: {len(times)} frames, corrected "
+                           f"finish {corrected}: not within 2 frames of the "
+                           f"JAX package's {DEMO_LOCKSTEP_FRAMES} and "
+                           f"{DEMO_LOCKSTEP_FINISH}")
+    return out
+
+
+def _demo_engine(device, card, tmp):
+    """``engine``: ``mkdemo.make_demo`` against the stub engine on a free
+    port, the stub's server on the card."""
+    import asyncio
+
+    from q1physrl_torch import mkdemo
+    from q1physrl_torch.ops.env_rollout import rollout_actions
+
+    stub = write_stub(tmp, device)
+    dem = Path(tmp) / "engine.dem"
+    rollout_actions.launches = 0
+    corrected, seconds = _seconds(lambda: asyncio.run(mkdemo.make_demo(
+        str(CHECKPOINT), str(RUN_YAML), str(stub), str(tmp), str(dem),
+        port=_free_udp_port(), device=device)), device)
+    launches = rollout_actions.launches
+    times, origins, _, finish = _cross_parse("engine", dem)
+    stopped = Path(str(stub) + ".stopped")
+    served = int(stopped.read_text()) if stopped.exists() else None
+    rate = float(np.abs(np.diff(times) - 1 / 72).max())
+    out = {"phase": "demo_engine", "card": card, "engine_s": seconds,
+           "launches": launches, "frames": len(times),
+           "frames_served": served, "max_frame_period_err_s": rate,
+           "corrected_finish": corrected, "stopped_by_sigint":
+           served is not None}
+    _emit(out)
+    if served is None:
+        raise RuntimeError("demo engine: the stub engine was not stopped "
+                           "by make_demo's SIGINT")
+    if not (len(times) >= DEMO_ENGINE_FRAMES and served == len(times)
+            and launches == len(times) - 1 and rate <= 1e-5
+            and abs(origins[0][2] - 32.875) < 1e-4):
+        raise RuntimeError(f"demo engine: {len(times)} frames (served "
+                           f"{served}, {launches} launches), frame period "
+                           f"off by {rate} s")
+    if corrected is None or finish is None:
+        raise RuntimeError("demo engine: tpu_pb did not finish")
+    return out
+
+
+def _state_on(state, device):
+    """A copy of an ``EnvState`` on ``device``."""
+    from q1physrl_torch.ops.env_rollout import _state_from
+
+    return _state_from([x.to(device, copy=True) for x in state.leaves()])
+
+
+def _gym_on_card(device, card):
+    """``gym``: ``VectorPhysEnv`` on the card at GYM_SHAPE, each step held
+    to the same step on the CPU from the card's state: rewards and the
+    state at tests/test_pallas_rollout.py's tolerances, dones, flags and
+    key latches exactly, the observation's quantized columns within one
+    quantum (a velocity or z an ulp apart can round to the next one)."""
+    import torch
+
+    from q1physrl_torch.env import VectorPhysEnv, get_obs_scale
+
+    n, steps = GYM_SHAPE
+    cfg = dict(num_envs=n, zero_start_prob=0.5)
+    card_env = VectorPhysEnv(cfg, seed=0, device=device)
+    cpu_env = VectorPhysEnv(cfg, seed=0, device="cpu")
+    scale = np.asarray(get_obs_scale(card_env._config), np.float64)
+    quantum = np.array([0, 0, 1 / 8, 16, 16, 16]) / scale
+    rng = np.random.default_rng(0)
+    k = card_env._config.num_keys
+    seconds = {"cuda": 0.0, "cpu": 0.0}
+    flips, err = 0, 0.0
+    for _ in range(steps):
+        actions = np.concatenate(
+            [rng.integers(0, 2, (n, k)),
+             rng.uniform(-1, 1, (n, 1)) * card_env._config.action_range],
+            axis=1)
+        cpu_env._state = _state_on(card_env._state, "cpu")
+        got, s = _seconds(lambda: card_env.vector_step(actions), device)
+        seconds["cuda"] += s
+        want, s = _seconds(lambda: cpu_env.vector_step(actions),
+                           torch.device("cpu"))
+        seconds["cpu"] += s
+        (obs, rew, done, _), (obs0, rew0, done0, _) = got, want
+        np.testing.assert_allclose(rew, rew0, rtol=REWARD_RTOL,
+                                   atol=REWARD_ATOL, err_msg="gym rewards")
+        np.testing.assert_array_equal(done, done0, err_msg="gym dones")
+        diff = np.abs(obs.astype(np.float64) - obs0)
+        np.testing.assert_allclose(obs[:, :2], obs0[:, :2], rtol=YAW_RTOL,
+                                   err_msg="gym obs time, yaw")
+        if not (diff[:, 2:] <= quantum[2:] * (1 + 1e-6)).all():
+            raise AssertionError("gym: an observation differs by more than "
+                                 "one quantum")
+        flips += int((diff[:, 2:] > 0).sum())
+        err = max(err, _compare_state(
+            "gym", _state_on(card_env._state, "cpu"), cpu_env._state))
+    out = {"phase": "demo_gym", "card": card, "n": n, "steps": steps,
+           "seconds": seconds, "max_abs_err_state": err,
+           "obs_quantum_flips": flips}
+    _emit(out)
+    return out
+
+
+def _demo_finalize(checkpoint_dir, device, card):
+    """``finalize`` (run from phase 5, inside its temporary directory):
+    ``scripts/torch_finalize_run.py`` on the training run's checkpoint.
+    Returns its line, with the launches of rollout_actions."""
+    import importlib.util
+
+    from q1physrl_torch.ops.env_rollout import rollout_actions
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_finalize_run", ROOT / "scripts" / "torch_finalize_run.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out_dir = Path(checkpoint_dir) / "bundle"
+    rollout_actions.launches = 0
+    (evals, behaviour), seconds = _seconds(lambda: script.main(
+        [str(TRAIN_YAML), str(checkpoint_dir), str(out_dir), "--device",
+         str(device)]), device)
+    launches = rollout_actions.launches
+    files = ["eval.json", "run.dem", "checkpoint", "checkpoint.tune_metadata",
+             "native/train_state.pt", "native_meta.json", "behaviour.json"]
+    missing = [f for f in files if not (out_dir / f).is_file()]
+    _cross_parse("finalize", out_dir / "run.dem")
+    keys = list(json.loads((CHECKPOINT.parent / "behaviour.json")
+                           .read_text()))
+    scores = list(evals["stochastic"].values()) + [evals["deterministic"]]
+    from q1physrl_torch.algo.config import load_run_config
+
+    env = load_run_config(str(TRAIN_YAML)).env
+    steps = int(np.ceil(env.time_limit / env.time_delta)) + 2
+    out = {"phase": "demo_finalize", "card": card, "finalize_s": seconds,
+           "launches": launches, "files": files, "missing": missing,
+           "stochastic": evals["stochastic"],
+           "deterministic": evals["deterministic"], "behaviour": behaviour}
+    _emit(out)
+    if missing or list(behaviour) != keys:
+        raise RuntimeError(f"finalize: missing {missing}, behaviour keys "
+                           f"{list(behaviour)}")
+    if not np.isfinite(scores).all():
+        raise RuntimeError(f"finalize: scores not finite: {evals}")
+    # 512 + 2 episodes and the demo's eval_sim, one launch per frame each.
+    if launches != 3 * steps:
+        raise RuntimeError(f"finalize: expected {3 * steps} rollout_actions "
+                           f"launches, counted {launches}")
+    return out
+
+
+def _phase_demo(device, card, steps):
+    """4c: the demo path on the card (``export``, ``lockstep``, ``engine``,
+    ``gym``; ``finalize`` runs in phase 5).  Returns the launches of
+    rollout_actions on each path, and the largest difference of the
+    lockstep loop's replayed launches from the plain version."""
+    with tempfile.TemporaryDirectory(prefix="q1_chip_demo_") as tmp:
+        export = _demo_export(device, card, steps, tmp)
+        lockstep = _demo_lockstep(device, card, tmp)
+        engine = _demo_engine(device, card, tmp)
+    _gym_on_card(device, card)
+    return ({"demo_export": export["launches"],
+             "demo_lockstep": lockstep["launches"],
+             "demo_engine": engine["launches"]},
+            lockstep["replay_max_abs_err_vs_plain"])
 
 
 # --- data-parallel phases ---------------------------------------------------
@@ -2055,9 +2479,11 @@ def main(device=None) -> int:
     # 4a. the analysis path; 4b. round 5's winner through the evaluate CLI
     analysis_launches, analysis_err = _phase_analysis(run, device, steps)
     r5_launches = _phase_scoring_r5(device, steps)
+    # 4c. the demo path (its finalize step runs in phase 5)
+    demo_launches, demo_err = _phase_demo(device, card, steps)
 
     # 5. training through the Trainer; 5a. a population through the sweep
-    training = _phase_training(device)
+    training = _phase_training(device, card)
     sweep = _phase_sweep(device)
 
     # 6. the bench's env metric through its entry point
@@ -2088,12 +2514,14 @@ def main(device=None) -> int:
                 "bound_by": main["bound_by"], "library_ms": None,
                 "shapes": shapes}
 
-    actions_entry = entry("rollout_actions", 177, actions_launches,
+    by_path = {"scoring": actions_launches, "analysis": analysis_launches,
+               "scoring_r5": r5_launches, **demo_launches,
+               "finalize": training["finalize_launches"]}
+    actions_entry = entry("rollout_actions", 177, sum(by_path.values()),
                           actions_t["scoring"],
-                          max(actions_err, analysis_err), actions_t)
-    actions_entry["launches_by_path"] = {"scoring": actions_launches,
-                                         "analysis": analysis_launches,
-                                         "scoring_r5": r5_launches}
+                          max(actions_err, analysis_err, demo_err),
+                          actions_t)
+    actions_entry["launches_by_path"] = by_path
     # The frame that launches each kernel on its main path, replayed from
     # its CUDA graph: its time on the card and the capture's seconds.
     actions_entry.update(frame_ms=scoring_loops["frame_ms"],

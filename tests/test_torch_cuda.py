@@ -5,8 +5,9 @@ CPU, eval_sim and the counterfactual sweep on the card, a training
 iteration on the card; for data-parallel training, the generator's bits
 in two processes and the sharded rollouts of two gloo ranks on one card;
 the scoring, eval_sim and PPO-rollout loops replayed from CUDA graphs
-against their eager drivers; and a population's env launch, graphed
-rollout and iterations.
+against their eager drivers; a population's env launch, graphed
+rollout and iterations; and the lockstep demo bridge and its oracle
+server on the card.
 
 These tests need an NVIDIA card and nvcc; without them they skip (the
 kernels have no CPU mode).  Run them on the card with
@@ -649,3 +650,57 @@ def test_population_iteration_on_card(cuda, tmp_path):
     back = ckpt.restore_population(
         ckpt.latest_checkpoint(str(tmp_path / "stacked")), fresh)
     assert torch.equal(back.policy.flat, pt.ps.policy.flat)
+
+
+def test_lockstep_demo_on_card(cuda, tmp_path):
+    """Round 5's winner over the lockstep bridge with the policy, the
+    decoder and the oracle server on the card: one kernel launch per
+    policy frame, each replayed launch bitwise equal to the plain version,
+    the yaw sent equal to the kernel's, the frames and corrected finish
+    within 2 frames of the JAX package's CPU run (chip_smoke's
+    constants)."""
+    import asyncio
+
+    from chip_smoke import (DEMO_FINISH_TOL, DEMO_LOCKSTEP_FINISH,
+                            DEMO_LOCKSTEP_FRAMES)
+    from q1physrl_torch import mkdemo
+
+    r5 = ROOT / "data" / "checkpoints" / "repl_r5" / "best_member_02_rllib"
+    record = []
+    before = env_rollout.rollout_actions.launches
+    times, _, _, finish = asyncio.run(mkdemo.make_demo_lockstep(
+        str(r5), str(ROOT / "configs" / "run4.yml"), str(tmp_path / "r5.dem"),
+        device=cuda, record=record))
+    assert env_rollout.rollout_actions.launches - before == len(record) \
+        == len(times) - 1
+    cfg = dataclasses.replace(RUN4, num_envs=None)
+    for frame in record:
+        args = (cfg, frame["state"], frame["key_actions"].unsqueeze(0),
+                frame["yaw_action"].unsqueeze(0))
+        got = env_rollout.rollout_actions(*args)
+        want = env_rollout.rollout_actions_plain(*args)
+        _assert_states_equal(got[0], want[0])
+        assert torch.equal(got[0].yaw, frame["kernel_yaw"])
+        assert frame["sent"][0] == float(frame["kernel_yaw"][0])
+    assert abs(len(times) - DEMO_LOCKSTEP_FRAMES) <= 2
+    corrected = finish + mkdemo.DEMO_TIME_CORRECTION - times[0]
+    assert abs(corrected - DEMO_LOCKSTEP_FINISH) <= DEMO_FINISH_TOL
+
+
+def test_lockstep_server_physics_on_card(cuda):
+    """The oracle server's frame on the card against the CPU's: the same
+    move from the same state, within the rollout tolerances."""
+    from q1physrl_torch.utils.lockstep_server import LockstepServer
+
+    rng = np.random.default_rng(0)
+    for _ in range(50):
+        move = {"yaw": float(rng.integers(0, 256)) * 360 / 256,
+                "forward": int(rng.integers(-800, 801)),
+                "side": int(rng.integers(-1060, 1061)),
+                "buttons": int(rng.integers(0, 4))}
+        vel = np.array([*rng.uniform(-700, 700, 2), -12.0])
+        servers = [LockstepServer(device=d) for d in (cuda, "cpu")]
+        for s in servers:
+            s.vel = vel.copy()
+        got, want = (s._apply(move) for s in servers)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)

@@ -1178,9 +1178,10 @@ def _seconds(fn, device):
 
 
 def _captures():
-    from q1physrl_torch.utils import cuda_graph
+    from q1physrl_torch.utils import profiling
 
-    return dict(cuda_graph.counters)
+    captures, seconds = profiling.total("cuda_graph.capture")
+    return {"captures": captures, "capture_seconds": seconds}
 
 
 def _capture_seconds(before):

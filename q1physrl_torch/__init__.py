@@ -20,7 +20,8 @@ imports), holding the same modules in PyTorch's idiom:
                       explicit data-parallel iteration
 - ``utils``           the metrics writer, the .dem reader and writer, the
                       CUDA-graph frame loops, the NetQuake protocol-15
-                      client, the lockstep oracle server, profiling helpers
+                      client, the lockstep oracle server, and the store
+                      of the program's spans and counters
 - ``mkdemo``          a checkpoint made into a .dem speedrun demo: the
                       simulated export and the lockstep bridge over UDP
 - ``vidtools``        speed-overlay frames from a demo

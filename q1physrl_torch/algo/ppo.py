@@ -39,6 +39,12 @@ north-star zero_start_total_reward_mean) are accumulated on the device in
 
 The policy's parameters and the Adam moments are updated in place;
 :func:`learn` returns a new :class:`TrainState` that holds the same policy.
+
+The learning half records spans (``utils.profiling``): ``ppo.learn``
+around :func:`learn`, ``ppo.gae`` (GAE, standardization, the flat batch),
+``ppo.epoch`` per epoch and ``ppo.update`` per minibatch, with its
+``ppo.loss``, ``ppo.grad`` (the gradient, summed over the ranks when
+sharded) and ``ppo.adam`` (the clip and the step).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
 from ..parallel import distributed
 from ..utils.cuda_graph import (FrameLoop, LoopCache, param_addresses,
                                 resolve_driver)
+from ..utils.profiling import span
 from .config import PPOConfig
 
 __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
@@ -561,29 +568,37 @@ def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     device = batch.obs.device
     aux = {}
     for epoch in range(ppo.num_sgd_iter):
-        if perms is None:
-            perm = torch.randperm(ppo.batch_size, generator=generator,
-                                  device=device)[:n_mb * mb_size]
-        else:
-            perm = torch.as_tensor(perms[epoch], device=device)
-        # This rank's rows of each minibatch, minibatch after minibatch.
-        mine = perm.view(n_mb, mb_size)[:, r * rows:(r + 1) * rows]
-        shuffled = Batch(*(x[mine.reshape(-1)] for x in batch))
-        stats = []
-        for j in range(n_mb):
-            mb = Batch(*(x[j * rows:(j + 1) * rows] for x in shuffled))
-            total, mb_stats = loss_and_stats(env_cfg, ppo, policy, mb,
-                                             kl_coeff, entropy_coeff,
-                                             scale=1.0 / w)
-            grads = torch.autograd.grad(total, params)
-            if shard is None:
-                mb_stats = mb_stats[None]
+        with span("ppo.epoch"):
+            if perms is None:
+                perm = torch.randperm(ppo.batch_size, generator=generator,
+                                      device=device)[:n_mb * mb_size]
             else:
-                grads, mb_stats = _sum_over_ranks(grads, mb_stats, shard)
-            opt_state = adam_update(ppo, params, grads, opt_state, lr)
-            stats.append(mb_stats)
-        aux = {k: v.mean() for k, v in
-               aux_from_stats(torch.stack(stats)).items()}
+                perm = torch.as_tensor(perms[epoch], device=device)
+            # This rank's rows of each minibatch, minibatch after minibatch.
+            mine = perm.view(n_mb, mb_size)[:, r * rows:(r + 1) * rows]
+            shuffled = Batch(*(x[mine.reshape(-1)] for x in batch))
+            stats = []
+            for j in range(n_mb):
+                with span("ppo.update"):
+                    mb = Batch(*(x[j * rows:(j + 1) * rows]
+                                 for x in shuffled))
+                    with span("ppo.loss"):
+                        total, mb_stats = loss_and_stats(
+                            env_cfg, ppo, policy, mb, kl_coeff,
+                            entropy_coeff, scale=1.0 / w)
+                    with span("ppo.grad"):
+                        grads = torch.autograd.grad(total, params)
+                        if shard is None:
+                            mb_stats = mb_stats[None]
+                        else:
+                            grads, mb_stats = _sum_over_ranks(grads, mb_stats,
+                                                              shard)
+                    with span("ppo.adam"):
+                        opt_state = adam_update(ppo, params, grads, opt_state,
+                                                lr)
+                    stats.append(mb_stats)
+            aux = {k: v.mean() for k, v in
+                   aux_from_stats(torch.stack(stats)).items()}
     return opt_state, aux
 
 
@@ -678,24 +693,27 @@ def learn(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
     with metrics as 0-dim tensors; ``perms`` as in :func:`sgd_epochs`.
     With an env ``shard``, one rank's part of the global iteration (see the
     module's docstring)."""
-    w = 1 if shard is None else shard.world_size
-    total = (lambda x: x) if shard is None else distributed.all_reduce_sum
-    t, n = traj.reward.shape
-    advantages, value_targets = compute_gae(ppo, traj.reward, traj.done,
-                                            traj.value, bootstrap_value)
-    advantages = standardize(advantages, t * n * w, total)
-    batch = flat_batch(traj, advantages, value_targets, shard)
+    with span("ppo.learn"):
+        w = 1 if shard is None else shard.world_size
+        total = (lambda x: x) if shard is None else distributed.all_reduce_sum
+        t, n = traj.reward.shape
+        with span("ppo.gae"):
+            advantages, value_targets = compute_gae(
+                ppo, traj.reward, traj.done, traj.value, bootstrap_value)
+            advantages = standardize(advantages, t * n * w, total)
+            batch = flat_batch(traj, advantages, value_targets, shard)
 
-    entropy_coeff, lr, kl_target = iteration_coeffs(ppo, ts, coeffs)
-    opt_state, aux = sgd_epochs(env_cfg, ppo, ts.policy, ts.opt_state,
-                                ts.kl_coeff, batch, ts.generator,
-                                entropy_coeff, lr, perms, shard)
-    kl_coeff = update_kl_coeff(ppo, ts.kl_coeff, aux["kl"], kl_target)
-    maximum = (lambda x: x) if shard is None else distributed.all_reduce_max
-    metrics = {**episode_metrics(ts.stats, traj.reward.sum(), t * n * w,
-                                 total, maximum),
-               "kl_coeff": kl_coeff, **aux}
-    return next_state(ts, opt_state, kl_coeff, t * n * w), metrics
+        entropy_coeff, lr, kl_target = iteration_coeffs(ppo, ts, coeffs)
+        opt_state, aux = sgd_epochs(env_cfg, ppo, ts.policy, ts.opt_state,
+                                    ts.kl_coeff, batch, ts.generator,
+                                    entropy_coeff, lr, perms, shard)
+        kl_coeff = update_kl_coeff(ppo, ts.kl_coeff, aux["kl"], kl_target)
+        maximum = ((lambda x: x) if shard is None
+                   else distributed.all_reduce_max)
+        metrics = {**episode_metrics(ts.stats, traj.reward.sum(), t * n * w,
+                                     total, maximum),
+                   "kl_coeff": kl_coeff, **aux}
+        return next_state(ts, opt_state, kl_coeff, t * n * w), metrics
 
 
 def next_state(ts: TrainState, opt_state: AdamState, kl_coeff,

@@ -45,6 +45,7 @@ import torch
 from ..analyse import resolve_device
 from ..parallel import distributed, spmd
 from ..parallel.mesh import env_shard, init_sharded_train_state
+from ..utils import profiling
 from ..utils.metrics_io import MetricsWriter
 from . import checkpoint as ckpt
 from .config import PPOConfig, RunConfig, load_run_config
@@ -121,10 +122,11 @@ class Trainer:
     def step(self) -> dict:
         """One iteration; returns its metrics as floats, with the seconds
         of the rollout and the learning halves, and the collectives' calls
-        and seconds (``parallel.distributed.counters``; the seconds only
-        while ``time_collectives`` is on)."""
-        calls = distributed.counters["calls"]
-        seconds = distributed.counters["seconds"]
+        and seconds (the counter ``distributed.collectives`` and the span
+        ``distributed.collective`` of ``utils.profiling``; the seconds only
+        while ``distributed.time_collectives`` is on)."""
+        calls = profiling.counter("distributed.collectives")
+        _, seconds = profiling.total("distributed.collective")
         t0 = time.perf_counter()
         generator = (spmd.rank_generator(self.ts.generator)
                      if self.mode == "spmd" else self.ts.generator)
@@ -145,9 +147,10 @@ class Trainer:
         t2 = time.perf_counter()
         return {**metrics, "rollout_seconds": t1 - t0,
                 "learn_seconds": t2 - t1,
-                "collectives": distributed.counters["calls"] - calls,
+                "collectives":
+                    profiling.counter("distributed.collectives") - calls,
                 "collective_seconds":
-                    distributed.counters["seconds"] - seconds}
+                    profiling.total("distributed.collective")[1] - seconds}
 
     def maybe_checkpoint(self, i: int, metrics: dict) -> Optional[str]:
         """Reference checkpoint policy (train.py:119-133): save when any

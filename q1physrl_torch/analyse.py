@@ -47,6 +47,7 @@ from .ops.sharded_rollout import sharded_rollout_actions
 from .parallel import distributed
 from .parallel.mesh import shard_env_axis
 from .utils.cuda_graph import FrameLoop, LoopCache, resolve_driver
+from .utils.profiling import span
 
 __all__ = ("EvalSimResult", "eval_sim", "eval_zero_start",
            "zero_start_returns", "resolve_device", "parse_demo",
@@ -396,12 +397,18 @@ def zero_start_returns(policy, env_config: Config, *,
     widths; the JAX package likewise compiles its scan once per config, N,
     steps and mode.  ``"eager"`` (the CPU's) calls the frame once per
     frame.
+
+    Spans: ``analyse.zero_start`` around the call, with ``episodes``, and
+    within it ``analyse.readback``, the copy of the returns to the host,
+    where the host waits for the card's frames.
     """
-    device = resolve_device(device)
-    driver = resolve_driver(driver, device)
-    _full_float32_products()
-    cfg = dataclasses.replace(env_config, num_envs=None, zero_start_prob=1.0)
-    with torch.inference_mode():
+    with span("analyse.zero_start", episodes=num_episodes), \
+            torch.inference_mode():
+        device = resolve_device(device)
+        driver = resolve_driver(driver, device)
+        _full_float32_products()
+        cfg = dataclasses.replace(env_config, num_envs=None,
+                                  zero_start_prob=1.0)
         loop = _loop_for("zero_start", policy, cfg, deterministic, device,
                          driver, num_episodes, shard,
                          lambda fn: _ZeroStartLoop(fn, cfg, num_episodes,
@@ -411,7 +418,8 @@ def zero_start_returns(policy, env_config: Config, *,
         ret = loop.ret
         if shard is not None:
             ret = distributed.gather_env_axis(ret, shard)
-        return ret.to("cpu", copy=True).numpy()
+        with span("analyse.readback"):
+            return ret.to("cpu", copy=True).numpy()
 
 
 def eval_zero_start(policy, env_config: Config, *, num_episodes: int = 512,

@@ -18,30 +18,32 @@ slice.  So one code path runs NCCL across cards and gloo with several ranks
 on one card (NCCL refuses two ranks on one card).  The backend is chosen
 by the caller: ``nccl`` for CUDA, ``gloo`` for the CPU or when asked.
 
-Each collective counts its calls in :data:`counters`; with
-:func:`time_collectives` on, it also adds its host seconds, between a
-synchronization of the card before and after it.
+Each collective counts its calls in the counter
+``distributed.collectives`` (``utils.profiling``); with
+:func:`time_collectives` on, the card is synchronized before it, and it
+runs inside the span ``distributed.collective``, which ends with a second
+synchronization.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-import time
 
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import count, span
+
 __all__ = ("initialize", "shutdown", "is_initialized", "is_multi_process",
            "process_info", "rank", "world_size", "local_rank",
            "all_reduce_sum", "all_reduce_max", "all_reduce_mean",
-           "broadcast", "gather_env_axis", "barrier", "counters",
-           "time_collectives", "DEFAULT_TIMEOUT")
+           "broadcast", "gather_env_axis", "barrier", "time_collectives",
+           "DEFAULT_TIMEOUT")
 
 # A hung or dead rank fails the others' next collective after this long.
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=5)
 
-counters = {"calls": 0, "seconds": 0.0}
 _timing = {"on": False}
 
 
@@ -106,8 +108,8 @@ def process_info() -> dict:
 
 
 def time_collectives(on: bool = True):
-    """Add each collective's host seconds to ``counters["seconds"]``, with a
-    synchronization of the card before and after it (off by default: the
+    """Run each collective inside the span ``distributed.collective``, with
+    a synchronization of the card before and after it (off by default: the
     synchronizations cost the overlap of host and card)."""
     _timing["on"] = on
 
@@ -118,15 +120,14 @@ def _sync(x):
 
 
 def _collective(fn, x):
-    counters["calls"] += 1
+    count("distributed.collectives")
     if not _timing["on"]:
         fn(x)
         return x
     _sync(x)
-    t0 = time.perf_counter()
-    fn(x)
-    _sync(x)
-    counters["seconds"] += time.perf_counter() - t0
+    with span("distributed.collective"):
+        fn(x)
+        _sync(x)
     return x
 
 

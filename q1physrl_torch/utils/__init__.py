@@ -1,8 +1,9 @@
 """Utility subsystems: metrics sinks, the .dem demo file reader and
-writer, and the CUDA-graph capture of a loop's frame; imported on use: the
-NetQuake client (``netclient``), the lockstep oracle server
-(``lockstep_server``) and the profiling helpers (``profiling``)."""
+writer, the CUDA-graph capture of a loop's frame, and the store of the
+program's spans and counters with its ``torch.profiler`` export
+(``profiling``); imported on use: the NetQuake client (``netclient``) and
+the lockstep oracle server (``lockstep_server``)."""
 
-from . import cuda_graph, demfile, metrics_io
+from . import cuda_graph, demfile, metrics_io, profiling
 
-__all__ = ("cuda_graph", "demfile", "metrics_io")
+__all__ = ("cuda_graph", "demfile", "metrics_io", "profiling")

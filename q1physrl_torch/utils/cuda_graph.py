@@ -26,21 +26,24 @@ rules:
 
 A loop is captured against fixed addresses, so a caller that runs it again
 keeps it: :class:`LoopCache` holds the loops of a module by key, a few at
-most.  ``counters`` sums the captures of every FrameGraph of the process
-and their seconds.
+most.
+
+Spans and counters (``utils.profiling``): ``cuda_graph.capture`` around a
+capture (their totals are the process's captures and seconds),
+``cuda_graph.replay`` around a run's loop of replays with ``frames``, and
+the counter ``cuda_graph.frames`` of the frames replayed.
 """
 
 from __future__ import annotations
 
 import collections
-import time
 
 import torch
 
-__all__ = ("FrameGraph", "FrameLoop", "LoopCache", "counters",
-           "param_addresses", "resolve_driver")
+from .profiling import count, span
 
-counters = {"captures": 0, "capture_seconds": 0.0}
+__all__ = ("FrameGraph", "FrameLoop", "LoopCache", "param_addresses",
+           "resolve_driver")
 
 
 def param_addresses(module: torch.nn.Module) -> tuple:
@@ -138,7 +141,6 @@ class FrameGraph:
         self.generators = tuple(generators)
         self.counted = tuple(counted)
         self.graph = None
-        self.capture_seconds = None
         self.launches = {}  # wrapper -> its launches in one replay
 
     def run(self, frames: int):
@@ -151,8 +153,11 @@ class FrameGraph:
             self._warm_up()
             self._capture()
             frames -= 1
-        for _ in range(frames):
-            self.replay()
+        if frames:
+            with span("cuda_graph.replay", frames=frames):
+                for _ in range(frames):
+                    self.replay()
+            count("cuda_graph.frames", frames)
 
     def replay(self):
         self.graph.replay()
@@ -177,22 +182,19 @@ class FrameGraph:
         for generator in self.generators:
             register(generator)
         before = {fn: fn.launches for fn in self.counted}
-        t0 = time.perf_counter()
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(graph):
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self.frame()
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-            torch.cuda.synchronize(self.device)
+            with span("cuda_graph.capture"), torch.cuda.device(self.device):
+                with torch.cuda.graph(graph):
+                    mode = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        self.frame()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+                torch.cuda.synchronize(self.device)
         finally:
             captured = {fn: fn.launches - n for fn, n in before.items()}
             for fn, n in before.items():
                 fn.launches = n
-        self.capture_seconds = time.perf_counter() - t0
         self.launches = {fn: n for fn, n in captured.items() if n}
         self.graph = graph
-        counters["captures"] += 1
-        counters["capture_seconds"] += self.capture_seconds

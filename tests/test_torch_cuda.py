@@ -379,6 +379,12 @@ def _rose(before, **expected):
         k: expected.get(k, 0) for k in after}
 
 
+def _captures():
+    from q1physrl_torch.utils import profiling
+
+    return profiling.total("cuda_graph.capture")[0]
+
+
 @pytest.mark.parametrize("deterministic", [False, True])
 def test_graphed_zero_start_equals_eager(cuda, deterministic):
     """The scoring loop replayed from its CUDA graph gives the eager
@@ -401,18 +407,16 @@ def test_graphed_zero_start_equals_eager(cuda, deterministic):
 def test_two_checkpoints_reuse_one_capture(cuda):
     """Scoring two checkpoints copies each one's weights into one captured
     loop, and each gets its own eager bits."""
-    from q1physrl_torch.utils import cuda_graph
-
     policies = [_tpu_pb_policy(cuda), Policy(RUN4, device=cuda)]
     policies[1].load_state_dict(import_policy_params(R5_CHECKPOINT))
-    captures = cuda_graph.counters["captures"]
+    captures = _captures()
     for policy in policies + policies:
         eager = analyse.zero_start_returns(policy, RUN4, num_episodes=40,
                                            device=cuda, driver="eager")
         graphed = analyse.zero_start_returns(policy, RUN4, num_episodes=40,
                                              device=cuda)
         np.testing.assert_array_equal(graphed, eager)
-    assert cuda_graph.counters["captures"] == captures + 1
+    assert _captures() == captures + 1
 
 
 def test_graphed_eval_sim_equals_eager(cuda):
@@ -474,39 +478,36 @@ def test_trainer_recaptures_when_the_parameters_move(cuda, tmp_path):
     a new one when a parameter's address changes."""
     from q1physrl_torch.algo.config import RunConfig
     from q1physrl_torch.algo.train import Trainer
-    from q1physrl_torch.utils import cuda_graph
 
     run = RunConfig(ppo=PPOConfig(num_envs=256, rollout_length=8,
                                   num_sgd_iter=1, sgd_minibatch_size=256),
                     max_iterations=3, checkpoint_dir=str(tmp_path))
     trainer = Trainer(run, device=cuda)
-    captures = cuda_graph.counters["captures"]
+    captures = _captures()
     before = _launches()
     trainer.step()
     trainer.step()
-    assert cuda_graph.counters["captures"] == captures + 1
+    assert _captures() == captures + 1
     assert _rose(before, rollout_actions_autoreset=16)
     layer = trainer.ts.policy.pi.layers[0]
     layer.weight = torch.nn.Parameter(layer.weight.detach().clone())
     trainer.step()
-    assert cuda_graph.counters["captures"] == captures + 2
+    assert _captures() == captures + 2
 
 
 def test_train_iter_reuses_one_capture(cuda):
     """ppo.train_iter, the bench's iteration, replays the rollout it
     captured in its first call: one capture for three iterations, one
     launch per frame."""
-    from q1physrl_torch.utils import cuda_graph
-
     cfg = dataclasses.replace(RUN4, num_envs=None)
     ppo_cfg = PPOConfig(num_envs=256, rollout_length=8, num_sgd_iter=1,
                         sgd_minibatch_size=256)
     ts = ppo.init_train_state(0, cfg, ppo_cfg, cuda)
-    captures = cuda_graph.counters["captures"]
+    captures = _captures()
     before = _launches()
     for _ in range(3):
         ts, metrics = ppo.train_iter(cfg, ppo_cfg, ts)
-    assert cuda_graph.counters["captures"] == captures + 1
+    assert _captures() == captures + 1
     assert _rose(before, rollout_actions_autoreset=24)
     assert np.isfinite(float(metrics["kl"]))
 
@@ -557,6 +558,37 @@ def test_a_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         graph.run(3)
     assert graph.graph is None
+
+
+def test_a_graphed_loop_records_its_replays(cuda):
+    """FrameGraph.run keeps one ``cuda_graph.replay`` span per run of
+    replays with its ``frames`` (the capture's run replays one fewer) and
+    adds them to the counter ``cuda_graph.frames``; under the profiler the
+    span is marked profiled and is no profiler event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from q1physrl_torch.utils import profiling
+    from q1physrl_torch.utils.cuda_graph import FrameGraph
+
+    x = torch.zeros(4, device=cuda)
+    graph = FrameGraph(lambda: x.add_(1.0), cuda)
+    frames = profiling.counter("cuda_graph.frames")
+    captures = _captures()
+    graph.run(5)
+    graph.run(7)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.run(3)
+        torch.cuda.synchronize(cuda)
+    assert x.tolist() == [15.0] * 4
+    assert _captures() == captures + 1
+    assert profiling.counter("cuda_graph.frames") == frames + 4 + 7 + 3
+    replays = profiling.events("cuda_graph.replay")[-3:]
+    assert [e.attrs["frames"] for e in replays] == [4, 7, 3]
+    assert [e.profiled for e in replays] == [False, False, True]
+    assert all(e.end_ns > e.start_ns for e in replays)
+    assert not [e.name for e in prof.events()
+                if e.name.startswith("cuda_graph.")]
 
 
 # --- a population (algo/population.py) ---------------------------------------

@@ -4,10 +4,8 @@ scripts (gate report, sweep evaluation, run finalization)."""
 
 import importlib.util
 import json
-import math
 import pickle
 import shutil
-import time
 from pathlib import Path
 
 import numpy as np
@@ -137,17 +135,6 @@ def test_speed_anim_frames_match_jax(tmp_path):
     frame = tvidtools.render_speed_bars(speeds)[1]
     np.testing.assert_array_equal(tvidtools.rgba_to_bgra(frame),
                                   jvidtools.rgba_to_bgra(frame))
-
-
-def test_step_timer():
-    timer = profiling.StepTimer(window=3, device="cpu")
-    for _ in range(5):
-        with timer:
-            time.sleep(0.01)
-    assert len(timer.times) == 3
-    assert 0.005 < timer.mean < 0.1
-    assert timer.steps_per_sec(100) > 100
-    assert math.isnan(profiling.StepTimer().steps_per_sec(1))
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

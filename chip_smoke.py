@@ -17,7 +17,11 @@ Phases, each printing one JSON line:
                then compares and times kernel and plain version at the
                shapes the main paths launch beside each kernel's bound:
                rollout_actions at the scoring shape (N=512, T=1), the
-               eval_sim shape (N=1, T=1) and N=65,536, T=128;
+               eval_sim shape (N=1, T=1) and N=65,536, T=128, and its
+               decoded form, which the scoring loop launches, at the
+               scoring shape in both modes (state, return, alive flag and
+               observation to the bit; the kernels line gives its time as
+               rollout_actions', with the scoring launches by form);
                rollout_actions_autoreset at the training shape (N=8,192,
                T=1), each of these also in the form the frame loops launch
                (``out=``: the state written over itself into given
@@ -33,9 +37,12 @@ Phases, each printing one JSON line:
                episodes), checks one kernel launch per env step and the scores
                against ``data/checkpoints/tpu_pb/eval.json``.  The CLI's loop
                is a frame captured as a CUDA graph and replayed once per
-               frame; beside it (``scoring_loops``) the eager driver runs on
-               the card and the graphed returns are held to its, to the bit,
-               in both modes, with ``eager_s``, ``graphed_s``, ``capture_s``,
+               frame, the fused frame (the policy tower, the draws and one
+               launch of rollout_actions' decoded form); beside it
+               (``scoring_loops``) the eager driver runs on the card and the
+               graphed returns are held to its, and to the composed frame's
+               (``fused_share`` 1.0), to the bit, in both modes, with
+               ``eager_s``, ``graphed_s``, ``capture_s``,
                ``frame_ms`` (the card's time per replayed frame) and
                ``kernels_per_frame`` (torch.profiler).  Phases 4a, 4b and 5
                print the same for their loops.
@@ -369,6 +376,33 @@ def rollout_inputs(cfg, n, steps, seed, device, near_end=0.25):
             torch.tensor(ya, device=device))
 
 
+def sampled_frame_inputs(cfg, n, seed, device, near_end=0.5):
+    """What the decoded form of ``rollout_actions``
+    (``rollout_actions_sampled``) reads, numpy-seeded: a start state from
+    :func:`rollout_inputs`, logits (N, 2K + 2) with ties and NaNs among the
+    key logits and yaw means and log stds past their clamps, Gumbel
+    uniforms (K, N, 2) with some exact zeros, yaw normals (N,), returns and
+    alive flags."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    state, _, _ = rollout_inputs(cfg, n, 1, seed, device, near_end)
+    k = cfg.num_keys
+    logits = rng.normal(0.0, 2.0, (n, 2 * k + 2))
+    logits[:, 2 * k] = rng.normal(0.0, 4.0, n)
+    logits[:, 2 * k + 1] = rng.uniform(-25.0, 4.0, n)
+    tie = rng.random(n) < 0.1
+    logits[tie, 1] = logits[tie, 0]
+    nan = rng.random(n) < 0.05
+    logits[nan, rng.integers(0, 2 * k, n)[nan]] = np.nan
+    uniforms = rng.random((k, n, 2))
+    uniforms[rng.random((k, n, 2)) < 0.01] = 0.0
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    return (state, f32(logits), f32(uniforms), f32(rng.normal(size=n)),
+            f32(rng.normal(0.0, 100.0, n)),
+            torch.tensor(rng.random(n) < 0.8, device=device))
+
+
 def any_latches(state, seed):
     """``state`` with its key latches drawn from ANY_LATCHES."""
     import torch
@@ -477,6 +511,24 @@ def _compare(name, got, want):
                               _compare_state(name, s, s0)))
 
 
+def _compare_sampled(name, got, want):
+    """rollout_actions' decoded form: its (state, ret, alive, obs) against
+    the plain version's, the state as in :func:`_compare`, the alive flags
+    exactly, the return and the observation to the bit (-0.0 apart from
+    0.0).  Returns the largest float difference (0.0)."""
+    import torch
+
+    (s, r, a, o), (s0, r0, a0, o0) = got, want
+    if not torch.equal(a, a0):
+        raise AssertionError(f"{name}: alive flags differ")
+    for what, x, y in (("ret", r, r0), ("obs", o, o0)):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"{name}: {what} not bitwise equal to the "
+                                 f"plain version (largest difference "
+                                 f"{float((x - y).abs().max())})")
+    return _bitwise(name, _compare_state(name, s, s0))
+
+
 def _compare_random(name, got, want):
     """rollout_random's (state, reward sums, done count) against its plain
     version's: the state as in :func:`_compare`, the sums at the reward
@@ -548,6 +600,22 @@ def _bound(state, ka, ya):
                   + t * n * (4 + 1))  # rewards float32, dones bool
     return _least_time(2 * _nbytes(_state_leaves(state)) + step_bytes,
                        OPS_PER_ENV_STEP * n * t)
+
+
+def _bound_sampled(state, logits, uniforms, normals, ret, alive, obs):
+    """As :func:`_bound` for rollout_actions' decoded form at T=1: the
+    state read and written, the logits read (and the uniforms and normals
+    when it samples), the return and alive flag read and written, the
+    observation written.  Its operations are the env step's alone (the
+    decode's and the observation's are not counted, so the bound is low
+    only where operations would bind)."""
+    from q1physrl_torch.ops.env_rollout import _state_leaves
+
+    draws = () if uniforms is None else (uniforms, normals)
+    frame_bytes = (_nbytes((logits, *draws, obs))
+                   + 2 * _nbytes((ret, alive)))
+    return _least_time(2 * _nbytes(_state_leaves(state)) + frame_bytes,
+                       OPS_PER_ENV_STEP * state.num_envs)
 
 
 def _bound_autoreset(state, ka, ya, dones):
@@ -630,8 +698,9 @@ def _phase_rollout_actions(run, device):
 
     # The timed shapes are compared too, in both launch forms: a new result,
     # and the state written over itself into given buffers, as the frame
-    # loops launch it.  The scoring shape is the one the main path
-    # launches, and its error is the one the kernels line reports.
+    # loops launch it.  The streamed form runs eval_sim's and the demos'
+    # frames; the scoring loop launches the decoded form, compared and
+    # timed at its shape by _phase_rollout_actions_sampled.
     timings = {}
     for shape, (n, t, reps, plain_reps) in ACTIONS_SHAPES.items():
         state, ka, ya = rollout_inputs(run.env, n, t, 100, device)
@@ -648,6 +717,49 @@ def _phase_rollout_actions(run, device):
                           **_bound(state, ka, ya)}
         _emit({"phase": "kernel_timing", "kernel": "rollout_actions",
                "shape": shape, **timings[shape]})
+    return timings, max_err
+
+
+def _phase_rollout_actions_sampled(run, device):
+    """rollout_actions' decoded form (``rollout_actions_sampled``), the
+    kernel the scoring loop launches, at the scoring shape (N=512, run4's
+    K=4) in both modes on :func:`sampled_frame_inputs`: the kernel, in
+    place, against its plain version to the bit, then both timed beside
+    the bound.  Returns ({shape: timing}, the largest difference)."""
+    import torch
+
+    from q1physrl_torch.ops.env_rollout import (
+        rollout_actions_sampled, rollout_actions_sampled_plain)
+
+    cfg = run.env
+    n, _, reps, plain_reps = ACTIONS_SHAPES["scoring"]
+    timings, max_err = {}, 0.0
+    for seed, (shape, sample) in enumerate((("scoring_decoded", True),
+                                            ("scoring_decoded_mode", False)),
+                                           200):
+        state, logits, uniforms, normals, ret, alive = sampled_frame_inputs(
+            cfg, n, seed, device)
+        if not sample:
+            uniforms = normals = None
+        obs = torch.empty((n, 6), dtype=torch.float32, device=device)
+        want = rollout_actions_sampled_plain(cfg, state.clone(), logits,
+                                             uniforms, normals, ret, alive)
+        mine = (state.clone(), ret.clone(), alive.clone())
+        err = _compare_sampled(f"run4 {shape}", rollout_actions_sampled(
+            cfg, mine[0], logits, uniforms, normals, mine[1], mine[2], obs),
+            want)
+        max_err = max(max_err, err)
+        kernel = lambda: rollout_actions_sampled(
+            cfg, mine[0], logits, uniforms, normals, mine[1], mine[2], obs)
+        plain = lambda: rollout_actions_sampled_plain(
+            cfg, state, logits, uniforms, normals, ret, alive)
+        timings[shape] = {"n": n, "t": 1, "max_abs_err": err,
+                          "mode": "sample" if sample else "mode",
+                          **_timed(kernel, plain, reps, plain_reps),
+                          **_bound_sampled(state, logits, uniforms, normals,
+                                           ret, alive, obs)}
+        _emit({"phase": "kernel_timing", "kernel": "rollout_actions",
+               "form": "decoded", "shape": shape, **timings[shape]})
     return timings, max_err
 
 
@@ -1227,7 +1339,8 @@ def _frame_profile(loop, frames):
     the operations per frame the profiler sees in replays and in one eager
     frame, the replay's summed device time (``frame_busy_ms``: the rest of
     ``frame_ms`` is the gaps between its nodes) and its costliest kernels
-    (``frame_top``: name, device microseconds and count per frame).  It
+    (``frame_top``: the 16 costliest names, each with its device
+    microseconds and count per frame; every name of the scoring frame).  It
     replays the graph itself, so the launch counts do not move, and leaves
     the loop's buffers advanced (a loop that records rewinds its index
     first, staying inside its records): the next run starts them anew."""
@@ -1241,7 +1354,7 @@ def _frame_profile(loop, frames):
         rewind()
         frame_ms = _time_ms(graph.replay, reps - 3)
         rewind()
-        replayed = _device_profile(graph.replay, 5)
+        replayed = _device_profile(graph.replay, 5, top=16)
         rewind()
         eager = _device_profile(loop.frame, 1)
     return {"frame_ms": frame_ms, "kernels_per_frame": replayed["operations"],
@@ -1260,20 +1373,25 @@ def _cached_loop(name, size):
     return loop
 
 
-def _same_returns(name, graphed, eager):
+def _same_returns(name, graphed, eager, what="the eager driver's"):
     if not np.array_equal(graphed, eager):
         raise AssertionError(f"{name}: the graphed loop's returns differ "
-                             f"from the eager driver's (largest difference "
+                             f"from {what} (largest difference "
                              f"{float(np.abs(graphed - eager).max())})")
 
 
 def _scoring_loops(name, checkpoint, device, steps, cli_s, captures):
     """Beside a scoring phase's CLI run (graphed): the eager driver on the
     card for both of its modes, held to the graphed returns to the bit, the
-    graphed loop timed again (its capture reused), and the frame's cost."""
+    graphed loop timed again (its capture reused), and the frame's cost.
+    The Policy's loops run the fused frame; each mode's graphed returns are
+    also held to the composed frame's (the policy as a callable, eager on
+    the card), to the bit, and ``fused_share`` is the share of the phase's
+    frames that ran fused."""
     from q1physrl_torch import analyse
     from q1physrl_torch.algo.evaluate import resolve_checkpoint
     from q1physrl_torch.models import Policy, import_policy_params
+    from q1physrl_torch.utils import profiling
 
     run_env = _run4_env()
     policy = Policy(run_env, device=device)
@@ -1281,16 +1399,29 @@ def _scoring_loops(name, checkpoint, device, steps, cli_s, captures):
         resolve_checkpoint(str(checkpoint))))
     out = {"phase": f"{name}_loops", "frames": steps, "cli_s": cli_s,
            **captures}
+    frames = lambda: np.array([profiling.counter("analyse.fused_frames"),
+                               profiling.counter("analyse.composed_frames")])
     for mode, n, deterministic in (("stochastic", 512, False),
                                    ("deterministic", 2, True)):
-        run = lambda driver: analyse.zero_start_returns(
-            policy, run_env, num_episodes=n, deterministic=deterministic,
+        run = lambda driver, p=policy: analyse.zero_start_returns(
+            p, run_env, num_episodes=n, deterministic=deterministic,
             device=device, driver=driver)
+        before = frames()
         graphed, graphed_s = _seconds(lambda: run("graph"), device)
         eager, eager_s = _seconds(lambda: run("eager"), device)
+        fused, composed = frames() - before
         _same_returns(f"{name} {mode}", graphed, eager)
+        if composed:
+            raise AssertionError(f"{name} {mode}: {composed} of the "
+                                 f"Policy's frames ran composed")
+        _same_returns(f"{name} {mode}", graphed,
+                      run("eager", analyse._policy_from(
+                          policy, run_env, deterministic)),
+                      "the composed frame's")
         out[mode] = {"n": n, "eager_s": eager_s, "graphed_s": graphed_s,
-                     "graphed_equals_eager_bitwise": True}
+                     "graphed_equals_eager_bitwise": True,
+                     "fused_equals_composed_bitwise": True,
+                     "fused_share": float(fused / (fused + composed))}
     out.update(_frame_profile(_cached_loop("zero_start", 512), steps))
     _emit(out)
     return out
@@ -2409,6 +2540,7 @@ def main(device=None) -> int:
     from q1physrl_torch.algo.config import load_run_config
     from q1physrl_torch.ops import env_rollout
     from q1physrl_torch.ops.env_rollout import (rollout_actions,
+                                                rollout_actions_sampled,
                                                 rollout_random)
 
     device = torch.device("cuda", 0) if device is None else device
@@ -2449,12 +2581,13 @@ def main(device=None) -> int:
                                                   run.env.num_keys)}
         for name, n in shapes.items()}})
     actions_t, actions_err = _phase_rollout_actions(run, device)
+    decoded_t, decoded_err = _phase_rollout_actions_sampled(run, device)
     autoreset_t, autoreset_err = _phase_autoreset(run, device)
     random_t, random_err = _phase_random(run, device)
 
     # 4. scoring through the evaluate CLI
     steps = int(np.ceil(run.env.time_limit / run.env.time_delta)) + 2
-    rollout_actions.launches = 0
+    rollout_actions.launches = rollout_actions_sampled.launches = 0
     captures = _captures()
     t0 = time.perf_counter()
     sto, det = evaluate.main([str(RUN_YAML), str(CHECKPOINT), "512",
@@ -2462,14 +2595,19 @@ def main(device=None) -> int:
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     actions_launches = rollout_actions.launches
+    decoded_launches = rollout_actions_sampled.launches
     scoring_loops = _scoring_loops("scoring", CHECKPOINT, device, steps,
                                    score_s, _capture_seconds(captures))
     _emit({"phase": "scoring", "seconds": score_s, "env_steps_per_episode":
-           steps, "launches": actions_launches, "stochastic": sto,
+           steps, "launches": actions_launches,
+           "decoded_launches": decoded_launches, "stochastic": sto,
            "deterministic": det["mean"]})
     if actions_launches != 2 * steps:
         raise RuntimeError(f"expected one kernel launch per env step "
                            f"({2 * steps}), counted {actions_launches}")
+    if decoded_launches != actions_launches:
+        raise RuntimeError(f"scoring: {actions_launches - decoded_launches} "
+                           f"launches of the streamed form, none expected")
     if not abs(sto["mean"] - STOCHASTIC_MEAN) <= STOCHASTIC_TOL:
         raise RuntimeError(f"stochastic mean {sto['mean']} is not within "
                            f"{STOCHASTIC_TOL} of {STOCHASTIC_MEAN}")
@@ -2518,11 +2656,18 @@ def main(device=None) -> int:
     by_path = {"scoring": actions_launches, "analysis": analysis_launches,
                "scoring_r5": r5_launches, **demo_launches,
                "finalize": training["finalize_launches"]}
+    # #1's main path, scoring, launches its decoded form: the entry's time,
+    # bound and error are the decoded form's at the scoring shape, sampling.
     actions_entry = entry("rollout_actions", 177, sum(by_path.values()),
-                          actions_t["scoring"],
-                          max(actions_err, analysis_err, demo_err),
-                          actions_t)
-    actions_entry["launches_by_path"] = by_path
+                          decoded_t["scoring_decoded"],
+                          max(actions_err, decoded_err, analysis_err,
+                              demo_err),
+                          {**actions_t, **decoded_t})
+    actions_entry.update(
+        form="decoded", launches_by_path=by_path,
+        scoring_launches_by_form={
+            "decoded": decoded_launches,
+            "streamed": actions_launches - decoded_launches})
     # The frame that launches each kernel on its main path, replayed from
     # its CUDA graph: its time on the card and the capture's seconds.
     actions_entry.update(frame_ms=scoring_loops["frame_ms"],

@@ -5,9 +5,12 @@
   device-resident alive mask and return accumulator.  Each frame samples
   the policy from the observation and advances the env through
   ``ops.env_rollout.rollout_actions`` with T=1, so on the card every env
-  step is one launch of the CUDA rollout kernel.  Given an env shard, each
-  rank of a process group plays its share of the episodes through
-  ``ops.sharded_rollout.sharded_rollout_actions``.
+  step is one launch of the CUDA rollout kernel; for a :class:`Policy` on
+  a card the frame after the policy tower is one launch of that kernel's
+  decoded form (``ops.env_rollout.rollout_actions_sampled``), which also
+  samples, updates the returns and builds the next observation.  Given an
+  env shard, each rank of a process group plays its share of the episodes
+  through ``ops.sharded_rollout.sharded_rollout_actions``.
 - :func:`eval_sim` records one episode frame by frame through the same
   kernel (N=1, one launch per frame) as an :class:`EvalSimResult`, whose
   counterfactual sweep (:meth:`EvalSimResult.hypothetical_delta_speeds`)
@@ -42,12 +45,12 @@ from . import phys
 from .env import core as env_core
 from .env.config import Config, Key
 from .models.policy import Policy, action_dist
-from .ops.env_rollout import rollout_actions
+from .ops.env_rollout import rollout_actions, rollout_actions_sampled
 from .ops.sharded_rollout import sharded_rollout_actions
 from .parallel import distributed
 from .parallel.mesh import shard_env_axis
 from .utils.cuda_graph import FrameLoop, LoopCache, resolve_driver
-from .utils.profiling import span
+from .utils.profiling import count, span
 
 __all__ = ("EvalSimResult", "eval_sim", "eval_zero_start",
            "zero_start_returns", "resolve_device", "parse_demo",
@@ -226,15 +229,14 @@ def _cached_loop(key, policy, make):
 
 def _loop_for(name, policy, cfg, deterministic, device, driver, size,
               shard, make):
-    """The loop ``make(policy_fn)`` that runs ``policy`` on ``size``
-    envs (or steps): on the graph driver a Policy's cached loop
-    (:func:`_cached_loop`), else a new loop around ``policy`` itself."""
+    """The loop ``make(policy)`` that runs ``policy`` on ``size`` envs (or
+    steps): on the graph driver a Policy's cached loop
+    (:func:`_cached_loop`), made around its static copy, else a new loop
+    around ``policy`` itself."""
     if driver == "graph" and isinstance(policy, Policy):
         return _cached_loop(
-            (name, cfg, deterministic, device, size, shard), policy,
-            lambda static: make(_policy_from(static, cfg, deterministic,
-                                             shard)))
-    return make(_policy_from(policy, cfg, deterministic, shard))
+            (name, cfg, deterministic, device, size, shard), policy, make)
+    return make(policy)
 
 
 class _SimLoop(FrameLoop):
@@ -318,7 +320,9 @@ def eval_sim(policy, env_config: Config, *, seed: int = 0,
     with torch.inference_mode():
         loop = _loop_for("sim", policy, cfg, deterministic, device, driver,
                          max_steps, None,
-                         lambda fn: _SimLoop(fn, cfg, max_steps, device))
+                         lambda p: _SimLoop(
+                             _policy_from(p, cfg, deterministic), cfg,
+                             max_steps, device))
         loop.start(seed)
         loop.run(max_steps, driver)
         # One copy to the host at the end: (T, ...) numpy per field, apart
@@ -338,22 +342,32 @@ def eval_sim(policy, env_config: Config, *, seed: int = 0,
         fmove=cut("fmove"), jump=cut("jump"), device=str(device))
 
 
+def _takes_fused_frame(policy, cfg: Config, shard, device) -> bool:
+    """Whether the scoring loop runs the fused frame: on a card, for a
+    :class:`Policy` (a callable's actions are its own), K Categorical(2)
+    keys and a continuous yaw, unsharded.  Everything else runs the
+    composed frame."""
+    return (torch.device(device).type == "cuda"
+            and isinstance(policy, Policy) and shard is None
+            and cfg.allow_yaw and cfg.discrete_yaw_steps == -1)
+
+
 class _ZeroStartLoop(FrameLoop):
     """eval_zero_start's frames: the env state of this rank's episodes,
-    their returns and alive flags."""
+    their returns and alive flags.  A subclass defines the frame, and
+    ``frames_counter``, the counter of :mod:`utils.profiling` that counts
+    the frames it runs."""
 
-    def __init__(self, policy_fn, cfg: Config, n: int, device, shard=None):
+    frames_counter: str
+
+    def __init__(self, cfg: Config, n: int, device, shard=None):
         self.generator = torch.Generator(device)
-        self.step = (rollout_actions if shard is None
-                     else sharded_rollout_actions)
         super().__init__(device, (self.generator,),
-                         (rollout_actions, sharded_rollout_actions))
-        self.policy_fn, self.cfg, self.n, self.shard = policy_fn, cfg, n, shard
+                         (rollout_actions, rollout_actions_sampled,
+                          sharded_rollout_actions))
+        self.cfg, self.n, self.shard = cfg, n, shard
         self.state = self._reset()
         local = self.state.num_envs
-        self.rewards = torch.empty((1, local), dtype=torch.float32,
-                                   device=device)
-        self.dones = torch.empty((1, local), dtype=torch.bool, device=device)
         self.ret = torch.zeros(local, dtype=torch.float32, device=device)
         self.alive = torch.ones(local, dtype=torch.bool, device=device)
 
@@ -369,6 +383,30 @@ class _ZeroStartLoop(FrameLoop):
         self.ret.zero_()
         self.alive.fill_(True)
 
+    def run(self, frames: int, driver: str):
+        super().run(frames, driver)
+        count(self.frames_counter, frames)
+
+
+class _ComposedZeroStartLoop(_ZeroStartLoop):
+    """The composed frame, for any policy, action space, device and shard:
+    it builds the observation, runs the policy's sampling (or mode) and
+    steps through ``rollout_actions`` (``sharded_rollout_actions`` given a
+    shard), then updates the returns."""
+
+    frames_counter = "analyse.composed_frames"
+
+    def __init__(self, policy, cfg: Config, n: int, device, shard=None,
+                 deterministic: bool = False):
+        super().__init__(cfg, n, device, shard)
+        self.policy_fn = _policy_from(policy, cfg, deterministic, shard)
+        self.step = (rollout_actions if shard is None
+                     else sharded_rollout_actions)
+        local = self.state.num_envs
+        self.rewards = torch.empty((1, local), dtype=torch.float32,
+                                   device=device)
+        self.dones = torch.empty((1, local), dtype=torch.bool, device=device)
+
     def frame(self):
         cfg, state = self.cfg, self.state
         obs = env_core.compute_obs(cfg, state.player, state.yaw,
@@ -378,6 +416,44 @@ class _ZeroStartLoop(FrameLoop):
                   out=(state, self.rewards, self.dones))
         self.ret += self.rewards[0] * self.alive
         self.alive &= ~self.dones[0]
+
+
+class _FusedZeroStartLoop(_ZeroStartLoop):
+    """The fused frame, where :func:`_takes_fused_frame` holds: it runs the
+    policy tower on the observation buffer, draws what
+    ``ActionDist.sample`` draws, in its order, into static buffers, and
+    makes one launch of ``rollout_actions_sampled``, which decodes the
+    actions, steps, updates the returns and writes the next observation:
+    the composed frame's bits."""
+
+    frames_counter = "analyse.fused_frames"
+
+    def __init__(self, policy: Policy, cfg: Config, n: int, device,
+                 deterministic: bool = False):
+        super().__init__(cfg, n, device)
+        self.policy = policy
+        f32 = dict(dtype=torch.float32, device=device)
+        self.obs = torch.empty((n, 6), **f32)
+        self.uniforms = self.normals = None
+        if not deterministic:
+            self.uniforms = torch.empty((cfg.num_keys, n, 2), **f32)
+            self.normals = torch.empty(n, **f32)
+
+    def start(self, seed: int):
+        super().start(seed)
+        state = self.state
+        self.obs.copy_(env_core.compute_obs(self.cfg, state.player,
+                                            state.yaw, state.time_remaining))
+
+    def frame(self):
+        logits = self.policy.pi(self.obs)
+        if self.uniforms is not None:
+            for u in self.uniforms:
+                torch.rand(u.shape, generator=self.generator, out=u)
+            torch.randn(self.normals.shape, generator=self.generator,
+                        out=self.normals)
+        rollout_actions_sampled(self.cfg, self.state, logits, self.uniforms,
+                                self.normals, self.ret, self.alive, self.obs)
 
 
 def zero_start_returns(policy, env_config: Config, *,
@@ -391,7 +467,11 @@ def zero_start_returns(policy, env_config: Config, *,
     Each frame samples the policy from the observation (or takes its mode
     with ``deterministic``) and advances the envs by one call of
     ``rollout_actions`` with T=1, one launch of the CUDA kernel on the
-    card.  ``shard``: as in :func:`eval_zero_start`.  ``driver``:
+    card; for a :class:`Policy` with a continuous yaw on a card, unsharded,
+    the frame after the policy tower is one launch of that kernel's decoded
+    form, which also samples, updates the returns and builds the next
+    observation (``_FusedZeroStartLoop``).  ``shard``: as in
+    :func:`eval_zero_start`.  ``driver``:
     ``"graph"`` (the default on a card) replays the frame as a CUDA graph,
     captured once per config, episodes, mode, device, shard and layer
     widths; the JAX package likewise compiles its scan once per config, N,
@@ -409,10 +489,16 @@ def zero_start_returns(policy, env_config: Config, *,
         _full_float32_products()
         cfg = dataclasses.replace(env_config, num_envs=None,
                                   zero_start_prob=1.0)
+
+        def make(p):
+            if _takes_fused_frame(p, cfg, shard, device):
+                return _FusedZeroStartLoop(p, cfg, num_episodes, device,
+                                           deterministic)
+            return _ComposedZeroStartLoop(p, cfg, num_episodes, device,
+                                          shard, deterministic)
+
         loop = _loop_for("zero_start", policy, cfg, deterministic, device,
-                         driver, num_episodes, shard,
-                         lambda fn: _ZeroStartLoop(fn, cfg, num_episodes,
-                                                   device, shard))
+                         driver, num_episodes, shard, make)
         loop.start(seed)
         loop.run(_episode_steps(cfg), driver)
         ret = loop.ret

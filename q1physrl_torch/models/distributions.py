@@ -2,10 +2,10 @@
 
 - :class:`Categorical` — RLLib's default for Discrete spaces.
 - :class:`GaussianSquashedGaussian` — a diagonal Gaussian squashed through
-  the CDF of N(0, _SCALE) onto (low, high).  A clipped Gaussian plus an
+  the CDF of N(0, SQUASH_SCALE) onto (low, high).  A clipped Gaussian plus an
   entropy bonus pushes probability mass outside the clip region; the squash
-  keeps logp/KL/entropy exact.  ``_SCALE = 0.5 * 1.8137`` matches the
-  standard-logistic variance.
+  keeps logp/KL/entropy exact.  ``SQUASH_SCALE = 0.5 * 1.8137`` matches
+  the standard-logistic variance.
 
 Closed forms:
 
@@ -33,12 +33,17 @@ import math
 import torch
 
 __all__ = ("Categorical", "GaussianSquashedGaussian", "draw", "SMALL_NUMBER",
-           "MIN_LOG_NN_OUTPUT", "MAX_LOG_NN_OUTPUT")
+           "MIN_LOG_NN_OUTPUT", "MAX_LOG_NN_OUTPUT", "MAX_ABS_MEAN",
+           "SQUASH_SCALE")
 
 # RLLib 0.8.4 numeric constants (ray.rllib.utils.numpy).
 SMALL_NUMBER = 1e-6
 MIN_LOG_NN_OUTPUT = -20.0
 MAX_LOG_NN_OUTPUT = 2.0
+# GaussianSquashedGaussian: the mean's clip, and the scale of the normal CDF
+# that squashes the sample.
+MAX_ABS_MEAN = 3.0
+SQUASH_SCALE = 0.5 * 1.8137
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -116,8 +121,6 @@ class GaussianSquashedGaussian:
     low: float = -1.0
     high: float = 1.0
 
-    _SCALE = 0.5 * 1.8137
-
     @property
     def log_std(self):
         return torch.clamp(self.log_std_raw, MIN_LOG_NN_OUTPUT,
@@ -125,23 +128,23 @@ class GaussianSquashedGaussian:
 
     @property
     def mean(self):
-        return torch.clamp(self.mean_raw, -3.0, 3.0)
+        return torch.clamp(self.mean_raw, -MAX_ABS_MEAN, MAX_ABS_MEAN)
 
     @property
     def std(self):
         return torch.exp(self.log_std)
 
     def _squash(self, raw):
-        values = torch.special.ndtr(raw / self._SCALE)
+        values = torch.special.ndtr(raw / SQUASH_SCALE)
         return (torch.clamp(values, SMALL_NUMBER, 1.0 - SMALL_NUMBER)
                 * (self.high - self.low) + self.low)
 
     def _unsquash(self, values):
-        return self._SCALE * torch.special.ndtri(
+        return SQUASH_SCALE * torch.special.ndtri(
             (values - self.low) / (self.high - self.low))
 
     def _log_squash_grad(self, unsquashed):
-        scale = torch.full_like(unsquashed, self._SCALE)
+        scale = torch.full_like(unsquashed, SQUASH_SCALE)
         return (_normal_logpdf(unsquashed, 0.0, scale)
                 + math.log(self.high - self.low))
 
@@ -158,7 +161,7 @@ class GaussianSquashedGaussian:
         return _normal_logpdf(u, self.mean, self.std) - self._log_squash_grad(u)
 
     def entropy(self):
-        mean, std, scale = self.mean, self.std, self._SCALE
+        mean, std, scale = self.mean, self.std, SQUASH_SCALE
         return (math.log(self.high - self.low)
                 - (math.log(scale) - self.log_std
                    + (torch.square(std) + torch.square(mean))

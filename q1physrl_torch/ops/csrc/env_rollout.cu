@@ -6,6 +6,16 @@
 // - rollout_actions_kernel replaces rollout_actions: T frames of
 //   env/core.py:step with compute_observation=False, streamed actions, no
 //   reset.  Plain version: env_rollout.py:rollout_actions_plain.
+//   Its decoded form, rollout_actions_kernel<K, Decode> (a second template
+//   of the same name, beside the streamed rollout_actions_kernel<K>), is the
+//   scoring loop's frame after the policy tower at T=1: it decodes each
+//   env's actions from the tower's logits, each key by Gumbel-max on its
+//   two logits and the frame's uniforms (Decode::kSample) or by their
+//   argmax (Decode::kMode), and the yaw as the squashed Gaussian's sample
+//   from the frame's normal draw or as its mode; then it runs the shared
+//   env step, adds the reward to the return where the episode is alive,
+//   clears alive where it ended, and writes the next frame's observation.
+//   Plain version: env_rollout.py:rollout_actions_sampled_plain.
 // - rollout_autoreset_kernel replaces rollout_actions_autoreset: the same
 //   frames, and every env whose episode ended is re-drawn from streamed
 //   uniforms, exactly a loop of env/core.py:step_autoreset(reset_uniforms=
@@ -77,7 +87,9 @@
 // expression is promoted to double; sincosf/sqrtf and the divides are the
 // IEEE-accurate versions (no --use_fast_math).  Scalars that the plain version folds in
 // double before rounding once to float32 (1 - time_limit, 2 pi, ...)
-// arrive from Python already rounded.
+// arrive from Python already rounded.  The decoded form's logf, expf and erff
+// are the accurate versions that torch's own kernels call, and give their
+// bits on every float32 (scripts/torch_decode_math_check.py).
 
 #include <cstdint>
 #include <cstring>
@@ -513,6 +525,156 @@ rollout_actions_kernel(Leaves in, Leaves out,
                 t_steps, p, [](int, Env&, bool) {});
 }
 
+// --- rollout_actions_kernel's decoded form -------------------------------
+//
+// The scoring loop's frame after the policy tower: each env's actions are
+// decoded from the tower's logits (and, when sampled, the frame's draws),
+// the env steps once, the return and alive flag are updated, and the next
+// frame's observation is written.  Each operation mirrors the one that
+// torch's own CUDA kernel runs for the composed frame (models/distributions.py,
+// env/core.py:compute_obs), so that the results are bitwise those of the
+// composed frame on the card; the plain version is env_rollout.py:
+// rollout_actions_sampled_plain.
+
+enum class Decode { kSample, kMode };
+
+// What the decoded form reads and writes besides the state.
+struct Sampled {
+  const float* logits;    // (N, 2K + 2): K key pairs, yaw mean, yaw log std
+  const float* uniforms;  // (K, N, 2) Gumbel uniforms; kSample only
+  const float* normals;   // (N,) yaw normals; kSample only
+  float* ret;             // (N,) return
+  uint8_t* alive;         // (N,) bool
+  float* obs;             // (N, 6) the next frame's observation
+};
+
+// Constants of the decode (models/distributions.py's, by the names given
+// below) and of the observation.  Each is the float32 that torch's kernel
+// applies: a Python scalar rounded once, and for a division by one its
+// float reciprocal, which is how torch divides by a scalar on the card.
+// The order is env_rollout.py:_decode_params'.
+struct DecodeParams {
+  float inv_squash_scale;  // 1 / float(SQUASH_SCALE), in float
+  float sqrt1_2;           // M_SQRT1_2 (torch.special.ndtr: x * M_SQRT1_2)
+  float mean_lo;           // -MAX_ABS_MEAN
+  float mean_hi;           // MAX_ABS_MEAN
+  float log_std_lo;        // MIN_LOG_NN_OUTPUT
+  float log_std_hi;        // MAX_LOG_NN_OUTPUT
+  float clip_lo;           // SMALL_NUMBER
+  float clip_hi;           // 1 - SMALL_NUMBER
+  float yaw_span;          // high - low = 2 * action_range
+  float yaw_low;           // -action_range
+  float obs_scale[6];      // env/config.py:get_obs_scale
+};
+constexpr int kNumDecodeParams = 16;
+static_assert(sizeof(DecodeParams) == kNumDecodeParams * sizeof(float),
+              "DecodeParams must hold the float array");
+
+// torch.clamp(v, lo, hi) on the card: NaN passes through.
+__device__ __forceinline__ float clamp_like_torch(float v, float lo,
+                                                  float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// torch.argmax of two values: the first index on a tie, and NaN wins.
+__device__ __forceinline__ int argmax2(float a, float b) {
+  return isnan(a) ? 0 : ((isnan(b) || b > a) ? 1 : 0);
+}
+
+// GaussianSquashedGaussian._squash: ndtr(raw / SCALE), which torch composes
+// as (erf(x * M_SQRT1_2) + 1) * 0.5, clamped and mapped onto (low, high).
+__device__ __forceinline__ float squash(float raw, const DecodeParams& d) {
+  const float x = raw * d.inv_squash_scale;
+  const float v = (erff(x * d.sqrt1_2) + 1.0f) * 0.5f;
+  return clamp_like_torch(v, d.clip_lo, d.clip_hi) * d.yaw_span + d.yaw_low;
+}
+
+// One env's actions from its logits: ActionDist.sample (Gumbel-max per
+// key, the squashed Gaussian's draw) or ActionDist.mode.
+template <int K, Decode kDecode>
+__device__ __forceinline__ Actions<K> decode_actions(
+    const float (&logits)[2 * K + 2], const float2 (&u)[K], float normal,
+    const DecodeParams& d) {
+  Actions<K> a;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float l0 = logits[2 * j], l1 = logits[2 * j + 1];
+    if (kDecode == Decode::kSample) {
+      l0 = l0 - logf(-logf(u[j].x));
+      l1 = l1 - logf(-logf(u[j].y));
+    }
+    a.keys[j] = argmax2(l0, l1);
+  }
+  float raw = clamp_like_torch(logits[2 * K], d.mean_lo, d.mean_hi);
+  if (kDecode == Decode::kSample) {
+    const float sigma = expf(
+        clamp_like_torch(logits[2 * K + 1], d.log_std_lo, d.log_std_hi));
+    raw = raw + sigma * normal;
+  }
+  a.yaw = squash(raw, d);
+  return a;
+}
+
+// env/core.py:compute_obs of the env's state: the wire's quantization (the
+// origin to 1/8 with ties to even, velocities truncated to multiples of
+// 16), each column over its scale.
+template <int K>
+__device__ __forceinline__ void write_obs(float* obs, const Env& e,
+                                          const DecodeParams& d, int i) {
+  float* o = obs + (size_t)i * 6;
+  o[0] = e.time_remaining / d.obs_scale[0];
+  o[1] = e.yaw / d.obs_scale[1];
+  o[2] = (rintf(e.z * 8.0f) * 0.125f) / d.obs_scale[2];
+  o[3] = (truncf(e.vx * 0.0625f) * 16.0f) / d.obs_scale[3];
+  o[4] = (truncf(e.vy * 0.0625f) * 16.0f) / d.obs_scale[4];
+  o[5] = (truncf(e.vz * 0.0625f) * 16.0f) / d.obs_scale[5];
+}
+
+// One frame of the scoring loop (T=1), the state written over itself
+// (`s`): the loads are issued before the move table's fill, as in
+// run_frames.
+template <int K, Decode kDecode>
+__global__ void __launch_bounds__(kThreads)
+rollout_actions_kernel(Leaves s, Sampled f, int n, Params p,
+                       DecodeParams d) {
+  __shared__ float2 moves[kMoveTable];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  Env e;
+  float logits[2 * K + 2];
+  float2 u[K];
+  float normal = 0.0f, ret = 0.0f;
+  bool alive = false;
+  if (live) {
+    e = load_env<K>(s, i, n);
+#pragma unroll
+    for (int j = 0; j < 2 * K + 2; ++j) {
+      logits[j] = f.logits[(size_t)i * (2 * K + 2) + j];
+    }
+    if (kDecode == Decode::kSample) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        u[j] = reinterpret_cast<const float2*>(f.uniforms)[(size_t)j * n + i];
+      }
+      normal = f.normals[i];
+    }
+    ret = f.ret[i];
+    alive = f.alive[i] != 0;
+  }
+  fill_move_table(moves, p);
+  if (!live) return;
+  const Actions<K> a = decode_actions<K, kDecode>(logits, u, normal, d);
+  bool done;
+  const float reward =
+      latches_are_bits<K>(e)
+          ? env_step<K, false>(e, a.keys, a.yaw, moves, p, done)
+          : env_step<K, true>(e, a.keys, a.yaw, moves, p, done);
+  store_env<K>(s, e, i, n);
+  f.ret[i] = ret + reward * (alive ? 1.0f : 0.0f);
+  f.alive[i] = alive && !done;
+  write_obs<K>(f.obs, e, d, i);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 rollout_autoreset_kernel(Leaves in, Leaves out,
@@ -672,6 +834,34 @@ extern "C" int q1_rollout_actions_autoreset(
       leaves_from(in), leaves_from(out), key_actions, yaw_actions,
       reset_uniforms, rewards, dones, n, t_steps,
       params_from(fparams, discrete_yaw_steps, flags));
+  return (int)cudaGetLastError();
+}
+
+// rollout_actions_kernel's decoded form: one scoring frame at T=1, the
+// state written over itself.  `state` is a host array of the 11 leaf
+// pointers (Leaves order; zero_start is not touched), `fparams` the 21
+// floats of Params and `dparams` the 16 of DecodeParams.  Null `uniforms`
+// and `normals` take the mode.
+extern "C" int q1_rollout_actions_sampled(
+    void* const* state, const float* logits, const float* uniforms,
+    const float* normals, float* ret, uint8_t* alive, float* obs, int n,
+    int k, const float* fparams, const float* dparams,
+    int discrete_yaw_steps, int flags, void* stream) {
+  if (bad_shape(n, 1, k)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Leaves s = leaves_from(state);
+  s.zero_start = nullptr;
+  const Sampled f{logits, uniforms, normals, ret, alive, obs};
+  DecodeParams d;
+  std::memcpy(&d, dparams, sizeof(d));
+  const Params p = params_from(fparams, discrete_yaw_steps, flags);
+  const bool sample = uniforms != nullptr;
+  auto kernel =
+      k == 3 ? (sample ? rollout_actions_kernel<3, Decode::kSample>
+                       : rollout_actions_kernel<3, Decode::kMode>)
+             : (sample ? rollout_actions_kernel<4, Decode::kSample>
+                       : rollout_actions_kernel<4, Decode::kMode>);
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(s, f, n, p, d);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,12 @@ reset:
   no reset.  It replaces the JAX package's Pallas TPU kernel
   ``ops/env_rollout_pallas.py:rollout_actions``; plain version
   :func:`rollout_actions_plain`, a loop of
-  ``env.core.step(compute_observation=False)``.  The scoring path runs it.
+  ``env.core.step(compute_observation=False)``.  Its decoded form,
+  :func:`rollout_actions_sampled`, is the scoring loop's frame after the
+  policy tower at T=1: it decodes each env's actions from the tower's
+  logits (sampled from the frame's draws, or the mode), steps, updates the
+  return and alive flag and writes the next observation; plain version
+  :func:`rollout_actions_sampled_plain`.  The scoring path runs it.
 - :func:`rollout_actions_autoreset` adds the auto-reset from streamed
   uniforms.  It replaces ``rollout_actions_autoreset``; plain version
   :func:`rollout_actions_autoreset_plain`, a loop of
@@ -42,13 +47,19 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import phys
 from ..env import core as env_core
-from ..env.config import INITIAL_STATE, INITIAL_YAW_ZERO, Config
+from ..env.config import (INITIAL_STATE, INITIAL_YAW_ZERO, Config,
+                          get_obs_scale)
+from ..models.distributions import (MAX_ABS_MEAN, MAX_LOG_NN_OUTPUT,
+                                    MIN_LOG_NN_OUTPUT, SMALL_NUMBER,
+                                    SQUASH_SCALE)
 
 __all__ = ("rollout_actions", "rollout_actions_plain",
+           "rollout_actions_sampled", "rollout_actions_sampled_plain",
            "rollout_actions_autoreset", "rollout_actions_autoreset_plain",
            "rollout_random", "rollout_random_plain", "random_frame_inputs",
            "FRAMES_PER_DRAW", "philox4x32_10", "uniform_from_bits",
@@ -167,6 +178,9 @@ def _library():
                                        + [i32] * 2 + [ptr])
     lib.q1_rollout_actions_autoreset.argtypes = ([ptr] * 7 + [i32] * 3
                                                  + [ptr] + [i32] * 2 + [ptr])
+    lib.q1_rollout_actions_sampled.argtypes = ([ptr] * 7 + [i32] * 2
+                                               + [ptr] * 2 + [i32] * 2
+                                               + [ptr])
     lib.q1_rollout_random.argtypes = ([ptr] * 4 + [i32] * 3 + [ptr]
                                       + [i32] * 2 + [ctypes.c_uint, ptr])
     lib.q1_philox.argtypes = [ptr, ptr, i32, ctypes.c_uint, ctypes.c_uint,
@@ -174,8 +188,8 @@ def _library():
     lib.q1_launch_shape.argtypes = [i32, i32, i32, ptr]
     lib.q1_frames_per_draw.argtypes = []
     for fn in (lib.q1_rollout_actions, lib.q1_rollout_actions_autoreset,
-               lib.q1_rollout_random, lib.q1_philox, lib.q1_launch_shape,
-               lib.q1_frames_per_draw):
+               lib.q1_rollout_actions_sampled, lib.q1_rollout_random,
+               lib.q1_philox, lib.q1_launch_shape, lib.q1_frames_per_draw):
         fn.restype = i32
     if lib.q1_frames_per_draw() != FRAMES_PER_DRAW:
         raise RuntimeError(
@@ -402,6 +416,121 @@ def rollout_actions(cfg: Config, state: env_core.EnvState, key_actions,
 
 
 rollout_actions.launches = 0
+
+
+# --- rollout_actions, decoded form ------------------------------------------
+
+
+def _decode_params(cfg: Config):
+    """The 16 floats of the kernel's ``DecodeParams``, in its order: each
+    the float32 that torch's own kernel applies in the composed frame on
+    the card.  A division by a Python scalar runs there as a product by
+    the scalar's float reciprocal, computed in float on the host."""
+    high, low = cfg.action_range, -cfg.action_range
+    values = (float(np.float32(1.0) / np.float32(SQUASH_SCALE)),
+              math.sqrt(0.5), -MAX_ABS_MEAN, MAX_ABS_MEAN, MIN_LOG_NN_OUTPUT,
+              MAX_LOG_NN_OUTPUT, SMALL_NUMBER, 1.0 - SMALL_NUMBER,
+              high - low, low, *get_obs_scale(cfg))
+    return (ctypes.c_float * len(values))(*values)
+
+
+def rollout_actions_sampled_plain(cfg: Config, state: env_core.EnvState,
+                                  logits, uniforms, normals, ret, alive):
+    """The plain version of the decoded form: the scoring loop's composed
+    frame after the policy tower, as torch calls in the kernel's order.
+
+    Each key is the Gumbel-max of its two logits (``Categorical.sample``)
+    or their argmax with ``uniforms`` None (``Categorical.mode``); the yaw
+    is the squashed Gaussian's draw from ``normals`` or its mode
+    (``GaussianSquashedGaussian``); one ``core.step``; the return and alive
+    updates of the scoring loop; then ``core.compute_obs`` of the new
+    state.  Any device: torch's own kernels give each device's bits.
+
+    Returns (EnvState, ret, alive, obs (N, 6)).
+    """
+    k = cfg.num_keys
+    keys = []
+    for j in range(k):
+        pair = logits[:, 2 * j:2 * j + 2]
+        if uniforms is not None:
+            pair = pair - torch.log(-torch.log(uniforms[j]))
+        keys.append(torch.argmax(pair, dim=-1))
+    key_actions = torch.stack(keys).to(torch.int32)
+    raw = torch.clamp(logits[:, 2 * k], -MAX_ABS_MEAN, MAX_ABS_MEAN)
+    if uniforms is not None:
+        std = torch.exp(torch.clamp(logits[:, 2 * k + 1], MIN_LOG_NN_OUTPUT,
+                                    MAX_LOG_NN_OUTPUT))
+        raw = raw + std * normals
+    high, low = cfg.action_range, -cfg.action_range
+    squashed = torch.special.ndtr(raw / SQUASH_SCALE)
+    yaw = (torch.clamp(squashed, SMALL_NUMBER, 1.0 - SMALL_NUMBER)
+           * (high - low) + low)
+    state, rewards, dones = rollout_actions_plain(cfg, state,
+                                                  key_actions[None], yaw[None])
+    ret = ret + rewards[0] * alive
+    alive = alive & ~dones[0]
+    obs = env_core.compute_obs(cfg, state.player, state.yaw,
+                               state.time_remaining)
+    return state, ret, alive, obs
+
+
+def rollout_actions_sampled(cfg: Config, state: env_core.EnvState, logits,
+                            uniforms, normals, ret, alive, obs):
+    """One scoring frame after the policy tower, written in place: the
+    decoded form of ``rollout_actions_kernel`` at T=1.
+
+    Args:
+        logits: (N, 2K + 2) float32, the tower's output for a config with
+            a continuous yaw (``discrete_yaw_steps == -1``).
+        uniforms: (K, N, 2) float32, each key's Gumbel uniforms, and
+        normals: (N,) float32, the yaw's normal draws; both None for the
+            mode.
+        ret: (N,) float32 and alive: (N,) bool, updated in place.
+        obs: (N, 6) float32, overwritten with the next observation.
+
+    ``state`` is advanced in place.  Returns (state, ret, alive, obs),
+    equal to :func:`rollout_actions_sampled_plain`'s.
+
+    CUDA tensors go through the kernel, and ``rollout_actions.launches``
+    counts its launch (a form of that kernel), as does
+    ``rollout_actions_sampled.launches`` alone; CPU tensors go through the
+    plain version.
+    """
+    n, k = state.num_envs, cfg.num_keys
+    if not cfg.allow_yaw or cfg.discrete_yaw_steps != -1:
+        raise ValueError("the decoded form takes a continuous yaw")
+    if (uniforms is None) != (normals is None):
+        raise ValueError("give both uniforms and normals, or neither")
+    f32 = torch.float32
+    device = logits.device
+    extra = [("logits", logits, f32, (n, 2 * k + 2)),
+             ("ret", ret, f32, (n,)), ("alive", alive, torch.bool, (n,)),
+             ("obs", obs, f32, (n, 6))]
+    if uniforms is not None:
+        extra += [("uniforms", uniforms, f32, (k, n, 2)),
+                  ("normals", normals, f32, (n,))]
+    _check_state(cfg, state, device, extra)
+    if device.type == "cpu":
+        result = rollout_actions_sampled_plain(cfg, state, logits, uniforms,
+                                               normals, ret, alive)
+        return _write_out(result, (state, ret, alive, obs))
+    _cuda_device(device, "rollout_actions_sampled")
+
+    null = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(device):
+        err = _library().q1_rollout_actions_sampled(
+            _pointers(state.leaves()), logits.data_ptr(), null(uniforms),
+            null(normals), ret.data_ptr(), alive.data_ptr(), obs.data_ptr(),
+            n, k, _float_params(cfg), _decode_params(cfg),
+            cfg.discrete_yaw_steps, _flags(cfg),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err)
+    rollout_actions.launches += 1
+    rollout_actions_sampled.launches += 1
+    return state, ret, alive, obs
+
+
+rollout_actions_sampled.launches = 0
 
 
 # --- rollout_actions_autoreset --------------------------------------------

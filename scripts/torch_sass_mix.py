@@ -335,9 +335,10 @@ def analyse(code, spans):
 
 def _kernel_name(mangled):
     """The kernel a mangled name belongs to; of a template on the number of
-    keys, only its K=4 instance (run4's) counts."""
+    keys, only its K=4 instance (run4's) counts, and of rollout_actions
+    only its streamed form (the decoded forms have no T loop)."""
     k = re.search(r"ILi(\d+)E", mangled)
-    if k and k.group(1) != "4":
+    if (k and k.group(1) != "4") or "DecodeE" in mangled:
         return None
     return next((k for k in KERNELS if k in mangled), None)
 

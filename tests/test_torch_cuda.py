@@ -26,10 +26,11 @@ from q1physrl_torch.algo import ppo
 from q1physrl_torch.algo.config import PPOConfig, load_run_config
 from q1physrl_torch.models import Policy, import_policy_params
 from q1physrl_torch.ops import env_rollout
+from q1physrl_torch.utils import profiling
 
 from _torch_common import run_ranks
 from chip_smoke import (any_latches, probe_configs, replay_eval_sim,
-                        rollout_inputs)
+                        rollout_inputs, sampled_frame_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -380,8 +381,6 @@ def _rose(before, **expected):
 
 
 def _captures():
-    from q1physrl_torch.utils import profiling
-
     return profiling.total("cuda_graph.capture")[0]
 
 
@@ -417,6 +416,77 @@ def test_two_checkpoints_reuse_one_capture(cuda):
                                              device=cuda)
         np.testing.assert_array_equal(graphed, eager)
     assert _captures() == captures + 1
+
+
+def _bits(x):
+    """A float32 tensor's bits (an array's, for numpy), so that -0.0 and
+    0.0 differ."""
+    return x.view(torch.int32) if isinstance(x, torch.Tensor) else \
+        x.view(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 7, 512, 1000])
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_sampled_kernel_equals_plain_version(cuda, deterministic, k, n):
+    """The decoded form of rollout_actions_kernel against its plain version,
+    to the bit: ties, NaNs and clamped values among the logits, exact-zero
+    uniforms, episodes ending, ragged blocks, and at N=1000 key latches of
+    any value."""
+    cfg = RUN4 if k == 4 else dataclasses.replace(RUN4, allow_jump=False)
+    state, logits, uniforms, normals, ret, alive = sampled_frame_inputs(
+        cfg, n, 10 * n + k, cuda)
+    if n == 1000:
+        state = any_latches(state, 1)
+    if deterministic:
+        uniforms = normals = None
+    want = env_rollout.rollout_actions_sampled_plain(
+        cfg, state.clone(), logits, uniforms, normals, ret, alive)
+    obs = torch.empty((n, 6), device=cuda)
+    before = (env_rollout.rollout_actions.launches,
+              env_rollout.rollout_actions_sampled.launches)
+    got = env_rollout.rollout_actions_sampled(cfg, state, logits, uniforms,
+                                              normals, ret, alive, obs)
+    assert (env_rollout.rollout_actions.launches,
+            env_rollout.rollout_actions_sampled.launches) == (
+                before[0] + 1, before[1] + 1)
+    _assert_states_equal(got[0], want[0])
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(_bits(got[3]), _bits(want[3]))
+    if n >= 512:
+        assert bool(want[2].any()) and not bool(want[2].all())
+
+
+@pytest.mark.parametrize("checkpoint", [CHECKPOINT, R5_CHECKPOINT])
+def test_fused_zero_start_equals_the_composed_frame(cuda, checkpoint):
+    """Both shipped checkpoints: the fused, graphed scoring loop against the
+    composed frame (a callable policy, eager) to the bit, at N=512
+    stochastic, N=2 deterministic, an N that leaves a ragged block, and a
+    second start of the captured N=512 loop; every frame of the Policy's
+    runs on the fused path."""
+    policy = Policy(RUN4, device=cuda)
+    policy.load_state_dict(import_policy_params(checkpoint))
+    steps = analyse._episode_steps(RUN4)
+    for i, (n, deterministic, seed) in enumerate(
+            [(512, False, 11), (2, True, 11), (100, False, 12),
+             (512, False, 13)]):
+        fused_frames = profiling.counter("analyse.fused_frames")
+        composed_frames = profiling.counter("analyse.composed_frames")
+        captures = _captures()
+        fused = analyse.zero_start_returns(policy, RUN4, num_episodes=n,
+                                           deterministic=deterministic,
+                                           seed=seed, device=cuda)
+        assert (profiling.counter("analyse.fused_frames")
+                == fused_frames + steps)
+        assert profiling.counter("analyse.composed_frames") == composed_frames
+        if i == 3:  # the first N=512 run's capture, started again
+            assert _captures() == captures
+        composed = analyse.zero_start_returns(
+            analyse._policy_from(policy, RUN4, deterministic), RUN4,
+            num_episodes=n, deterministic=deterministic, seed=seed,
+            device=cuda, driver="eager")
+        np.testing.assert_array_equal(_bits(fused), _bits(composed))
 
 
 def test_graphed_eval_sim_equals_eager(cuda):
@@ -567,7 +637,6 @@ def test_a_graphed_loop_records_its_replays(cuda):
     span is marked profiled and is no profiler event."""
     from torch.profiler import ProfilerActivity, profile
 
-    from q1physrl_torch.utils import profiling
     from q1physrl_torch.utils.cuda_graph import FrameGraph
 
     x = torch.zeros(4, device=cuda)

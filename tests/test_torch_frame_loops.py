@@ -145,7 +145,7 @@ def test_zero_start_matches_the_loop_it_replaces(deterministic):
     assert unique == 1 if deterministic else unique > 32
 
     cfg = dataclasses.replace(RUN4, num_envs=None, zero_start_prob=1.0)
-    loop = analyse._ZeroStartLoop(
+    loop = analyse._ComposedZeroStartLoop(
         analyse._policy_from(policy, cfg, deterministic), cfg, 64, "cpu")
     loop.start(2)
     with torch.inference_mode():

@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
 1. device    — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build     — compiles the rollout library (kernels rollout_actions,
-               rollout_actions_autoreset and rollout_random) and curand's
-               Philox yardstick from the checkout, one nvcc each, together.
+               rollout_actions_autoreset and rollout_random), the PPO loss
+               head's (ops/ppo_head.py) and curand's Philox yardstick from
+               the checkout, one nvcc each, together.
 3. kernels   — prints how each kernel launches at its main path's shape
                (threads per block, blocks resident per SM, waves), then
                holds each kernel against its plain PyTorch version on the
@@ -31,7 +32,11 @@ Phases, each printing one JSON line:
                key latches hold any int32 (ANY_LATCHES).  rollout_random's
                Philox is held against
                its plain version and curand's, and the zero-start share of
-               its resets against zero_start_prob.
+               its resets against zero_start_prob.  The PPO loss head's two
+               kernels at the training cells' shapes (8,192 rows; 4 x 128):
+               the forward terms and the value's gradient against the
+               plain version to the bit, the logits' within PPO_HEAD_ULPS,
+               timed beside the whole loss through the composed head.
 4. scoring   — runs the evaluate CLI on the shipped ``tpu_pb`` checkpoint under
                ``configs/run4.yml`` (512 stochastic + 2 deterministic zero-start
                episodes), checks one kernel launch per env step and the scores
@@ -160,6 +165,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -272,6 +278,14 @@ AUTORESET_SHAPES = {"training": (8192, 1, 1000, 100),
 RANDOM_SHAPES = {"throughput": (65536, 128, 20, 2),
                  "bench": (1 << 20, 720, 5, 1)}
 ZERO_START_RESETS = 1 << 20
+# The PPO loss head at the training cells' shapes: (config, members, rows
+# per member, reps, plain reps).
+PPO_HEAD_SHAPES = {"train": ("params_tpu.yml", 1, 8192, 1000, 50),
+                   "sweep": ("run4.yml", 4, 128, 1000, 50)}
+# The logit gradients' largest distance from the plain version's, in float32
+# ulps: the plain version takes the contracted multiply-adds in float64,
+# which rounds twice.
+PPO_HEAD_ULPS = 1
 BENCH_ENV = dict(n=1 << 20, t=720, reps=3)
 # One training iteration: at run_tpu_e3's 18,432 Adam steps of 128 rows an
 # iteration took 115-280 s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
@@ -401,6 +415,112 @@ def sampled_frame_inputs(cfg, n, seed, device, near_end=0.5):
     return (state, f32(logits), f32(uniforms), f32(rng.normal(size=n)),
             f32(rng.normal(0.0, 100.0, n)),
             torch.tensor(rng.random(n) < 0.8, device=device))
+
+
+def _at_ratio(logp, behaviour_logp, target):
+    """``behaviour_logp`` moved by a few ulps, row by row, to where
+    ``exp(logp - behaviour_logp)`` is ``target`` exactly on this device,
+    where such a value lies within 64 ulps; else left as it is."""
+    import torch
+
+    cands = [behaviour_logp]
+    for step in (torch.inf, -torch.inf):
+        x = behaviour_logp
+        for _ in range(64):
+            x = torch.nextafter(x, torch.full_like(x, step))
+            cands.append(x)
+    cands = torch.stack(cands, -1)
+    hit = torch.exp(logp.unsqueeze(-1) - cands) == target
+    first = torch.argmax(hit.to(torch.int32), -1, keepdim=True)
+    found = torch.gather(cands, -1, first)[..., 0]
+    return torch.where(hit.any(-1), found, behaviour_logp)
+
+
+def ppo_head_inputs(cfg, ppo, members, rows, seed, device,
+                    dtype="float32"):
+    """What the PPO loss head (``ops.ppo_head``) reads, numpy-seeded, for
+    ``members`` x ``rows`` rows ((rows,) for one member): a dict of the
+    logits, value, behaviour logits, key actions (int32), yaw actions,
+    behaviour log-probabilities, advantages, old values and value targets,
+    and per-member KL and entropy coefficients ((P,), distinct).  Rows by
+    their index mod 8: 0, ratio 1 and the value equal to the old value (ties
+    in the minimum and the maximum); 1 and 2, the ratio at 1 +- clip_param
+    exactly and the value change at +- vf_clip_param; 3, saturated keys and
+    the yaw's mean and log std at their upper clamps exactly; 4, past their
+    lower clamps (the behaviour's too); 5, at them (4 and 5 with advantage
+    0); 6 and 7, the value change past its clip."""
+    import torch
+
+    from q1physrl_torch.models.distributions import (
+        MAX_ABS_MEAN, MAX_LOG_NN_OUTPUT, MIN_LOG_NN_OUTPUT)
+    from q1physrl_torch.models.policy import action_dist
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    shape = (rows,) if members == 1 else (members, rows)
+    n, k = members * rows, cfg.num_keys
+    width = 2 * k + 2
+    kind = np.arange(n) % 8
+    logits = rng.normal(0.0, 2.0, (n, width))
+    logits[:, 2 * k + 1] = rng.uniform(-3.0, 1.0, n)
+    behaviour = logits + rng.normal(0.0, 0.3, (n, width))
+    behaviour[kind == 0] = logits[kind == 0]
+    sat = kind == 3
+    logits[sat, 0:2] = (60.0, -60.0)
+    logits[sat, 2:4] = (-50.0, 50.0)
+    logits[sat, 2 * k:] = (MAX_ABS_MEAN, MAX_LOG_NN_OUTPUT)
+    logits[kind == 4, 2 * k:] = (-4.5, -25.0)
+    behaviour[kind == 4, 2 * k:] = (-5.0, -22.0)
+    logits[kind == 5, 2 * k:] = (-MAX_ABS_MEAN, MIN_LOG_NN_OUTPUT)
+    behaviour[kind == 5, 2 * k:] = (-2.9, -19.9)
+    keys = rng.integers(0, 2, (n, k)).astype(np.int32)
+    span = cfg.action_range
+    yaw = rng.uniform(-0.98 * span, 0.98 * span, n)
+    # Rows at the ratio's clip: a log-probability near 0 (each key's action
+    # 8 logits ahead, the yaw at its mean 0), so that the behaviour
+    # log-probability is small and its ulps fine enough to reach the clip.
+    edge = (kind == 1) | (kind == 2)
+    chosen = np.zeros((n, 2 * k), bool)
+    chosen[:, 0::2], chosen[:, 1::2] = keys == 0, keys == 1
+    logits[edge, :2 * k] = np.where(chosen[edge], 4.0, -4.0)
+    logits[edge, 2 * k:] = (0.0, -3.0)
+    yaw[edge] = 0.0
+    # Values on a grid of 2^-10, so that value -+ vf_clip_param is exact.
+    value = np.round(rng.normal(0.0, 2.0, n) * 1024.0) / 1024.0
+    vclip = ppo.vf_clip_param
+    old_value = value + rng.normal(0.0, 1.0, n)
+    old_value[kind == 0] = value[kind == 0]
+    old_value[kind == 1] = value[kind == 1] - vclip
+    old_value[kind == 2] = value[kind == 2] + vclip
+    old_value[kind >= 6] = value[kind >= 6] - 1.5 * vclip
+    # Past and at the lower clamps the yaw's log-probability is about -1e17,
+    # its ratio a matter of the last bit of the unsquashed action: those
+    # rows' advantage is 0, so that only the KL and entropy reach the clamps.
+    advantage = np.where((kind == 4) | (kind == 5), 0.0,
+                         rng.normal(0.0, 1.0, n))
+    t = lambda x: torch.tensor(x, dtype=dt, device=device)
+    logits_t, behaviour_t, yaw_t = t(logits), t(behaviour), t(yaw)
+    keys_t = torch.tensor(keys, device=device)
+    # The composed head's log-probability of the actions on this device.
+    logp = action_dist(cfg, logits_t).logp(keys_t.T, yaw_t)
+    blogp = logp + t(rng.normal(0.0, 0.3, n))
+    tie = t(kind == 0) > 0
+    blogp = torch.where(tie, logp, blogp)
+    for j, target in ((1, 1.0 + ppo.clip_param), (2, 1.0 - ppo.clip_param)):
+        at = _at_ratio(logp, logp - math.log(target), t(target))
+        blogp = torch.where(t(kind == j) > 0, at, blogp)
+    rows_of = lambda x: x.reshape(shape + tuple(x.shape[1:]))
+    return {
+        "logits": rows_of(logits_t), "value": rows_of(t(value)),
+        "behaviour_logits": rows_of(behaviour_t),
+        "key_actions": rows_of(keys_t), "yaw_actions": rows_of(yaw_t),
+        "behaviour_logp": rows_of(blogp),
+        "advantage": rows_of(t(advantage)),
+        "old_value": rows_of(t(old_value)),
+        "value_target": rows_of(t(value + rng.normal(0.0, 3.0, n))),
+        "kl_coeff": t(rng.uniform(0.05, 0.5, members)),
+        "entropy_coeff": t(rng.uniform(0.001, 0.03, members)),
+    }
 
 
 def any_latches(state, seed):
@@ -760,6 +880,112 @@ def _phase_rollout_actions_sampled(run, device):
                                            ret, alive, obs)}
         _emit({"phase": "kernel_timing", "kernel": "rollout_actions",
                "form": "decoded", "shape": shape, **timings[shape]})
+    return timings, max_err
+
+
+def ulps_apart(a, b):
+    """The largest distance of two float32 tensors in ulps (signed zeros
+    equal)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _phase_ppo_head(device):
+    """The PPO loss head's kernels (``ops/ppo_head.py``) at the training
+    cells' shapes (params_tpu: 8,192 rows; the sweep: 4 x 128) on
+    :func:`ppo_head_inputs`: the forward terms and the value's unit gradient
+    against the plain version to the bit, the logits' within PPO_HEAD_ULPS;
+    then one forward and one backward timed (CUDA events, and replayed from
+    a graph) beside the plain version's forward, the whole loss with its
+    gradient through the fused head (``loss_ms``) and through the composed
+    head it replaces (``composed_ms``), and the kernels' byte bound.
+    Returns ({shape: timing}, the largest difference)."""
+    import torch
+
+    from q1physrl_torch.algo import ppo as ppo_mod
+    from q1physrl_torch.algo import population
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.ops import ppo_head as head
+
+    timings, max_err = {}, 0.0
+    for seed, (shape, (yaml, members, rows, reps, plain_reps)) in enumerate(
+            PPO_HEAD_SHAPES.items(), 300):
+        run = load_run_config(str(ROOT / "configs" / yaml))
+        env_cfg, ppo_cfg = run.env, run.ppo
+        x = ppo_head_inputs(env_cfg, ppo_cfg, members, rows, seed, device)
+        params = head.HeadParams(env_cfg.num_keys, env_cfg.action_range,
+                                 ppo_cfg.clip_param, ppo_cfg.vf_clip_param,
+                                 ppo_cfg.vf_loss_coeff)
+        args = (x["logits"], x["value"], x["behaviour_logits"],
+                x["key_actions"], x["yaw_actions"], x["behaviour_logp"],
+                x["advantage"], x["old_value"], x["value_target"])
+        kc = x["kl_coeff"]
+        ec = (x["entropy_coeff"] if members > 1
+              else float(x["entropy_coeff"][0]))
+        forward = lambda: head._forward(params, args[0], args[1], args[2:],
+                                        kc, ec)
+        terms, grad = forward()
+        *plain, plain_grad = head.ppo_head_plain(params, *args, kc, ec)
+        err = _bitwise(f"ppo_head {shape}", max(
+            float((t - p).abs().max()) for t, p in
+            zip(terms + [grad[..., -1]], plain + [plain_grad[..., -1]])))
+        ulps = ulps_apart(grad[..., :-1], plain_grad[..., :-1])
+        if ulps > PPO_HEAD_ULPS:
+            raise AssertionError(f"ppo_head {shape}: logit gradients "
+                                 f"{ulps} ulps from the plain version's")
+        max_err = max(max_err, err)
+        grad_row = torch.full_like(x["value"], 1.0 / rows)
+        d_logits, d_value = head._backward(grad_row, grad)
+        backward = lambda: head._backward(grad_row, grad)
+
+        leaves = [args[0].clone().requires_grad_(),
+                  args[1].clone().requires_grad_()]
+        batch = ppo_mod.Batch(
+            obs=torch.zeros(tuple(args[1].shape) + (6,), device=device),
+            key_actions=x["key_actions"], yaw_actions=x["yaw_actions"],
+            logits=x["behaviour_logits"], logp=x["behaviour_logp"],
+            value=x["old_value"], advantage=x["advantage"],
+            value_target=x["value_target"])
+
+        def loss(fused):
+            ppo_mod._takes_fused_head = lambda *a: fused
+            stub = lambda obs: tuple(leaves)
+            if members == 1:
+                total, _ = ppo_mod.loss_and_stats(
+                    env_cfg, ppo_cfg, stub, batch, kc[0], ec)
+            else:
+                total, _ = population.population_loss_and_stats(
+                    env_cfg, ppo_cfg, stub, batch, kc[:, None],
+                    ec[:, None])
+            return torch.autograd.grad(total, leaves)
+
+        choose = ppo_mod._takes_fused_head
+        try:
+            loss_ms = _time_ms(lambda: loss(True), plain_reps)
+            composed_ms = _time_ms(lambda: loss(False), plain_reps)
+        finally:
+            ppo_mod._takes_fused_head = choose
+        both = lambda: (forward(), backward())
+        reads = [*args, kc] + ([ec] if members > 1 else [])
+        nbytes = (_nbytes(reads) + _nbytes(terms + [grad])
+                  + _nbytes([grad_row, grad, d_logits, d_value]))
+        timings[shape] = {
+            "members": members, "rows": rows, "max_abs_err": err,
+            "logit_grad_ulps": ulps,
+            "forward_ms": _time_ms(forward, reps),
+            "backward_ms": _time_ms(backward, reps),
+            "ms": _time_ms(both, reps),
+            "graph_ms": _graph_ms(both, min(reps, 100)),
+            "plain_ms": _time_ms(lambda: head.ppo_head_plain(
+                params, *args, kc, ec), plain_reps),
+            "loss_ms": loss_ms, "composed_ms": composed_ms,
+            **_least_time(nbytes, 0)}
+        _emit({"phase": "kernel_timing", "kernel": "ppo_head",
+               "shape": shape, **timings[shape]})
     return timings, max_err
 
 
@@ -2542,6 +2768,7 @@ def main(device=None) -> int:
     from q1physrl_torch.ops.env_rollout import (rollout_actions,
                                                 rollout_actions_sampled,
                                                 rollout_random)
+    from q1physrl_torch.ops.ppo_head import ppo_head
 
     device = torch.device("cuda", 0) if device is None else device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2566,7 +2793,8 @@ def main(device=None) -> int:
         print(lib.with_suffix(".log").read_text(), file=sys.stderr)
     _emit({"phase": "build",
            "kernels": ["rollout_actions", "rollout_actions_autoreset",
-                       "rollout_random"],
+                       "rollout_random", "ppo_head_forward",
+                       "ppo_head_backward"],
            "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
            "seconds": build_s})
 
@@ -2584,6 +2812,7 @@ def main(device=None) -> int:
     decoded_t, decoded_err = _phase_rollout_actions_sampled(run, device)
     autoreset_t, autoreset_err = _phase_autoreset(run, device)
     random_t, random_err = _phase_random(run, device)
+    head_t, head_err = _phase_ppo_head(device)
 
     # 4. scoring through the evaluate CLI
     steps = int(np.ceil(run.env.time_limit / run.env.time_delta)) + 2
@@ -2622,8 +2851,11 @@ def main(device=None) -> int:
     demo_launches, demo_err = _phase_demo(device, card, steps)
 
     # 5. training through the Trainer; 5a. a population through the sweep
+    ppo_head.launches = 0
     training = _phase_training(device, card)
+    head_launches = {"training": ppo_head.launches}
     sweep = _phase_sweep(device)
+    head_launches["sweep"] = ppo_head.launches - head_launches["training"]
 
     # 6. the bench's env metric through its entry point
     rollout_random.launches = 0
@@ -2681,11 +2913,18 @@ def main(device=None) -> int:
         launches_by_path={"training": training["launches"],
                           "sweep": sweep["launches"]},
         population_frame_ms=sweep["rollout"]["frame_ms"])
+    # The PPO loss head replaces no TPU kernel: its time and bound are one
+    # forward and one backward launch at params_tpu's shape.
+    head_entry = entry("ppo_head", None, sum(head_launches.values()),
+                       head_t["train"], head_err, head_t)
+    head_entry.update(source="q1physrl_torch/ops/csrc/ppo_head.cu",
+                      replaces=None, launches_by_path=head_launches)
     _emit({"kernels": [
         actions_entry,
         autoreset_entry,
         entry("rollout_random", 343, random_launches, random_t["bench"],
               random_err, random_t),
+        head_entry,
         *sharded_entries,
     ]})
     _emit({"ok": True, "device": {"platform": "gpu",

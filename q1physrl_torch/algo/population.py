@@ -229,15 +229,14 @@ def population_loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig,
     """``ppo.loss_and_stats`` on a (P, B, ...) batch: the sum over members of
     each member's mean loss, and the (P, 8) statistics.  ``kl_coeff`` and
     ``entropy_coeff``: (P, 1)."""
-    surrogate, action_kl, vf_loss, entropy, value = ppo_mod.loss_terms(
-        env_cfg, ppo, policy, batch)
-    total = torch.mean(-surrogate + kl_coeff * action_kl
-                       + ppo.vf_loss_coeff * vf_loss
-                       - entropy_coeff * entropy, -1).sum()
+    row_total, policy_loss, action_kl, vf_loss, entropy, value = (
+        ppo_mod.head_terms(env_cfg, ppo, policy, batch, kl_coeff,
+                           entropy_coeff))
+    total = torch.mean(row_total, -1).sum()
     with torch.no_grad():
         residual = batch.value_target - value
         stats = torch.stack([
-            torch.mean(-surrogate, -1), torch.mean(vf_loss, -1),
+            torch.mean(policy_loss, -1), torch.mean(vf_loss, -1),
             torch.mean(action_kl, -1), torch.mean(entropy, -1),
             torch.mean(batch.value_target, -1),
             torch.var(batch.value_target, -1, correction=0),
@@ -318,12 +317,14 @@ def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, ps: PopulationState,
                 for g in ps.generators])
         else:
             perm = torch.as_tensor(perms[:, epoch], device=device)
-        shuffled = Batch(*(x[rows, perm] for x in batch))
+        # (n_mb, P, mb_size, ...): each stacked minibatch one contiguous
+        # block, as the fused head reads it.
+        order = perm.view(members, n_mb, mb_size).transpose(0, 1)
+        shuffled = Batch(*(x[rows, order] for x in batch))
         stats = []
         for j in range(n_mb):
             with span("population.update"):
-                mb = Batch(*(x[:, j * mb_size:(j + 1) * mb_size]
-                             for x in shuffled))
+                mb = Batch(*(x[j] for x in shuffled))
                 stats.append(minibatch_step(env_cfg, ppo, ps, mb, kl_coeff,
                                             entropy_coeff, bc1[step],
                                             bc2[step], neg_lr))

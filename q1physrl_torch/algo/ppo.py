@@ -26,8 +26,12 @@ local minibatches.)
 
 The loss is RLLib 0.8.4's PPOLoss (ppo_tf_policy.py): clipped surrogate,
 adaptive KL penalty against the behaviour distribution, entropy bonus, and
-the max-of-clipped/unclipped value loss with vf_clip_param.  Adam follows
-the reference's optimizer to its rounding: moments as
+the max-of-clipped/unclipped value loss with vf_clip_param.  Its per-row
+terms come from :func:`head_terms`: on a card the fused head
+(``ops/ppo_head.py``: one kernel forward, one backward), where the call's
+tensors and action space allow it, else the composed head,
+:func:`loss_terms`, of torch operations; both give the same bits.  Adam
+follows the reference's optimizer to its rounding: moments as
 ``(1 - b1) * g + b1 * mu``, bias correction by division, ``eps`` added
 outside the square root, global-norm clipping as
 ``(g / norm) * max_norm`` only when the norm reaches ``max_norm``, and the
@@ -50,6 +54,7 @@ sharded) and ``ppo.adam`` (the clip and the step).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -60,17 +65,18 @@ from ..env.config import Config as EnvConfig
 from ..models.distributions import draw
 from ..models.policy import Policy, action_dist
 from ..ops.env_rollout import rollout_actions_autoreset
+from ..ops.ppo_head import HeadParams, ppo_head
 from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
 from ..parallel import distributed
 from ..utils.cuda_graph import (FrameLoop, LoopCache, param_addresses,
                                 resolve_driver)
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .config import PPOConfig
 
 __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
            "Trajectory", "init_train_state", "RolloutLoop", "rollout",
            "generator_ids", "compute_gae", "ppo_loss", "loss_terms",
-           "loss_and_stats", "aux_from_stats", "adam_update",
+           "head_terms", "loss_and_stats", "aux_from_stats", "adam_update",
            "sgd_epochs", "update_kl_coeff", "standardize", "flat_batch",
            "iteration_coeffs", "episode_metrics", "learn", "next_state",
            "train_iter")
@@ -432,6 +438,61 @@ def loss_terms(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     return surrogate, action_kl, vf_loss, entropy, value
 
 
+def _power_of_two(x) -> bool:
+    return x > 0 and math.frexp(x)[0] == 0.5
+
+
+def _takes_fused_head(env_cfg: EnvConfig, batch: Batch, scale) -> bool:
+    """Whether :func:`head_terms` takes the fused head: float32 on a card,
+    K Categorical(2) keys and a continuous yaw, and a gradient per row
+    from the mean (``scale`` over the rows) that is a power of two, by
+    which the kernel's saved gradient scales exactly.  Everything else
+    (the CPU, a discrete or absent yaw) runs the composed head."""
+    return (batch.obs.is_cuda and batch.logits.dtype == torch.float32
+            and env_cfg.allow_yaw and env_cfg.discrete_yaw_steps == -1
+            and _power_of_two(batch.value.shape[-1])
+            and _power_of_two(scale))
+
+
+def head_terms(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
+               batch: Batch, kl_coeff, entropy_coeff, scale: float = 1.0):
+    """The per-row terms of the loss on a batch whose rows are its last
+    axis (a population's: (P, B, ...), with (P, 1) coefficients):
+    (row_total, policy loss, action KL, value loss, entropy, value
+    prediction), with the policy loss the negated surrogate and
+    ``row_total = policy loss + kl_coeff * KL + vf_loss_coeff * value loss
+    - entropy_coeff * entropy``, the row's share of a loss of ``scale``
+    times the mean over the rows.
+
+    Where :func:`_takes_fused_head` holds, the fused head
+    (``ops.ppo_head``) computes them after the towers, and only row_total
+    carries a gradient; else the composed head, :func:`loss_terms`.  The
+    counters ``ppo.fused_heads`` and ``ppo.composed_heads`` count the
+    calls of each."""
+    if not _takes_fused_head(env_cfg, batch, scale):
+        count("ppo.composed_heads")
+        surrogate, action_kl, vf_loss, entropy, value = loss_terms(
+            env_cfg, ppo, policy, batch)
+        policy_loss = -surrogate
+        row_total = (policy_loss + kl_coeff * action_kl
+                     + ppo.vf_loss_coeff * vf_loss - entropy_coeff * entropy)
+        return row_total, policy_loss, action_kl, vf_loss, entropy, value
+    count("ppo.fused_heads")
+    logits, value = policy(batch.obs)
+    params = HeadParams(env_cfg.num_keys, env_cfg.action_range,
+                        ppo.clip_param, ppo.vf_clip_param, ppo.vf_loss_coeff)
+    kl_coeff = kl_coeff.reshape(-1)
+    if isinstance(entropy_coeff, torch.Tensor):
+        entropy_coeff = entropy_coeff.reshape(-1)
+    # The kernel reads rows in order; a strided minibatch is copied.
+    columns = (batch.logits, batch.key_actions, batch.yaw_actions, batch.logp,
+               batch.advantage, batch.value, batch.value_target)
+    terms = ppo_head(params, logits, value,
+                     *(x.contiguous() for x in columns), kl_coeff,
+                     entropy_coeff)
+    return (*terms, value)
+
+
 def loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                    batch: Batch, kl_coeff, entropy_coeff=None,
                    scale: float = 1.0):
@@ -441,18 +502,16 @@ def loss_and_stats(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     targets and of the value residuals (see :func:`aux_from_stats`)."""
     if entropy_coeff is None:
         entropy_coeff = ppo.entropy_coeff
-    surrogate, action_kl, vf_loss, entropy, value = loss_terms(
-        env_cfg, ppo, policy, batch)
-    total = torch.mean(-surrogate + kl_coeff * action_kl
-                       + ppo.vf_loss_coeff * vf_loss
-                       - entropy_coeff * entropy)
+    row_total, policy_loss, action_kl, vf_loss, entropy, value = head_terms(
+        env_cfg, ppo, policy, batch, kl_coeff, entropy_coeff, scale)
+    total = torch.mean(row_total)
     if scale != 1.0:
         total = total * scale
     with torch.no_grad():
         # Variances divide by N, as the reference's do.
         residual = batch.value_target - value
         stats = torch.stack([
-            torch.mean(-surrogate), torch.mean(vf_loss),
+            torch.mean(policy_loss), torch.mean(vf_loss),
             torch.mean(action_kl), torch.mean(entropy),
             torch.mean(batch.value_target),
             torch.var(batch.value_target, correction=0),

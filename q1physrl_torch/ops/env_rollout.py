@@ -70,7 +70,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # Each library and its source.  philox_check holds curand's Philox, the
 # yardstick chip_smoke.py compares the kernels' own with; no path runs it.
-_SOURCES = {"env_rollout": "env_rollout.cu", "philox_check": "philox_check.cu"}
+# ppo_head holds the PPO loss head's kernels (ops/ppo_head.py).
+_SOURCES = {"env_rollout": "env_rollout.cu", "philox_check": "philox_check.cu",
+            "ppo_head": "ppo_head.cu"}
 
 # -fmad=false: see the note on numerics at the top of the source.
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

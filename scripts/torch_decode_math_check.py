@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Check on the card that the rollout library's logf, expf and erff give
-torch.log's, torch.exp's and torch.erf's bits for every float32.
+"""Check on the card that the kernels' logf, expf, erff and ndtri give
+torch.log's, torch.exp's, torch.erf's and torch.special.ndtri's bits for
+every float32.
 
 usage: python scripts/torch_decode_math_check.py
 
 The decoded form of rollout_actions_kernel (q1physrl_torch/ops/csrc/
 env_rollout.cu) samples the policy's actions in the kernel with logf (the
 Gumbel-max), expf (the yaw's standard deviation) and erff (the squash's
-ndtr), where the composed frame calls torch's own kernels.  This builds a
-small kernel with the rollout library's nvcc flags that evaluates the
-three functions on all 2^32 bit patterns, 2^28 at a time, compares each
+ndtr), where the composed frame calls torch's own kernels; the PPO loss
+head (q1physrl_torch/ops/csrc/ppo_head.cu) unsquashes the stored yaw action
+with ndtri_like_torch (csrc/ndtri.cuh) where the composed head calls
+torch.special.ndtri.  This builds a small kernel with the library's nvcc
+flags that evaluates the four functions on all 2^32 bit patterns, 2^28 at
+a time, compares each
 chunk with torch's result on the card, and prints the card's name and
 power limit (nvidia-smi), then one JSON line: per function the count of
 patterns whose results differ (NaNs of either kind count as equal) and the
@@ -20,6 +24,7 @@ a card and nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -36,10 +41,14 @@ SOURCE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ndtri.cuh"
+
 __global__ void eval(int fn, unsigned int base, float* out) {
   const unsigned int i = blockIdx.x * blockDim.x + threadIdx.x;
   const float x = __uint_as_float(base + i);
-  out[i] = fn == 0 ? logf(x) : (fn == 1 ? expf(x) : erff(x));
+  out[i] = fn == 0 ? logf(x)
+         : fn == 1 ? expf(x)
+         : fn == 2 ? erff(x) : ndtri_like_torch(x);
 }
 
 extern "C" int run(int fn, unsigned int base, unsigned int m, float* out,
@@ -49,7 +58,8 @@ extern "C" int run(int fn, unsigned int base, unsigned int m, float* out,
 }
 """
 
-FUNCTIONS = {"logf": "log", "expf": "exp", "erff": "erf"}
+FUNCTIONS = {"logf": "log", "expf": "exp", "erff": "erf",
+             "ndtri": "special.ndtri"}
 CHUNK = 1 << 28
 
 
@@ -69,7 +79,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="q1_decode_math_") as work:
         src, lib = Path(work) / "check.cu", Path(work) / "check.so"
         src.write_text(SOURCE)
-        env_rollout.compile_library(src, lib)
+        env_rollout.compile_library(src, lib, include=env_rollout._CSRC)
         fn = ctypes.CDLL(str(lib)).run
         fn.argtypes = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
                        ctypes.c_void_p, ctypes.c_void_p]
@@ -84,7 +94,7 @@ def main() -> int:
                     .view(torch.float32)
                 err = fn(f_id, base, CHUNK, mine.data_ptr(), stream)
                 out["cuda_error"] = out["cuda_error"] or err
-                theirs = getattr(torch, op)(x)
+                theirs = functools.reduce(getattr, op.split("."), torch)(x)
                 differ = ((mine.view(torch.int32) != theirs.view(torch.int32))
                           & ~(torch.isnan(mine) & torch.isnan(theirs)))
                 n = int(differ.sum())

@@ -126,7 +126,7 @@ Phases, each printing one JSON line:
                125 launches, a finite log row per member, params moved, a
                stacked checkpoint that restores, seconds split into rollout
                and learning.
-6. bench_env — the port bench's env metric: rollout_random at N=2^20, T=720.
+6. bench_env — the env kernel's rate: rollout_random at N=2^20, T=720.
 7. reference — one process's Trainer at ``configs/params_tpu.yml`` (8,192
                envs x 96 frames, minibatch 8,192, full-width towers) for
                one iteration with one epoch: the iteration the data-parallel
@@ -147,8 +147,8 @@ Phases, each printing one JSON line:
                the main paths across the two ranks: the evaluate CLI
                (sharded_rollout_actions; then each rank's graphed scoring
                loop and its global-mode rollout held to the eager driver to
-               the bit), the bench's env metric
-               (sharded_rollout_random), and the Trainer
+               the bit), the env kernel's rate (sharded_rollout_random),
+               and the Trainer
                (sharded_rollout_actions_autoreset, one launch per frame per
                rank) at params_tpu.yml: one epoch in global mode, within
                rtol 1e-3 / atol 1e-5 of phase 7 with params equal across
@@ -679,6 +679,32 @@ def _time_ms(fn, reps, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _env_kernel_rate(device, shard=None):
+    """Env steps/s of rollout_random at BENCH_ENV's shape from a fresh
+    reset (CUDA events around its reps after one warm-up); with an env
+    ``shard``, of sharded_rollout_random on this rank's share, counting
+    the env steps of all ranks."""
+    import torch
+
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.env import core
+    from q1physrl_torch.ops.env_rollout import rollout_random
+    from q1physrl_torch.ops.sharded_rollout import sharded_rollout_random
+    from q1physrl_torch.parallel.mesh import shard_env_axis
+
+    cfg = dataclasses.replace(load_run_config(str(TRAIN_YAML)).env,
+                              num_envs=None)
+    n, t = BENCH_ENV["n"], BENCH_ENV["t"]
+    state = core.reset(cfg, torch.Generator(device).manual_seed(0), n,
+                       device=device)
+    if shard is None:
+        run = lambda: rollout_random(cfg, state, t, seed=7)
+    else:
+        state = shard_env_axis(state, shard)
+        run = lambda: sharded_rollout_random(cfg, state, t, seed=7)
+    return n * t / (_time_ms(run, BENCH_ENV["reps"], warmup=1) / 1e3)
 
 
 def _graph_ms(fn, reps):
@@ -2549,7 +2575,6 @@ def _rank_loops(device):
 
 def _rank_gloo(device, ckpt_root):
     """The sharded kernels, then the main paths across the ranks."""
-    from q1physrl_torch import bench
     from q1physrl_torch.algo import evaluate
     from q1physrl_torch.algo.config import load_run_config
     from q1physrl_torch.ops import sharded_rollout as sr
@@ -2566,8 +2591,7 @@ def _rank_gloo(device, ckpt_root):
     out["loops"] = _rank_loops(device)
 
     sr.sharded_rollout_random.launches = 0
-    rate = bench.bench_env_kernel(**BENCH_ENV, device=device,
-                                  shard=env_shard(BENCH_ENV["n"]))
+    rate = _env_kernel_rate(device, env_shard(BENCH_ENV["n"]))
     out["bench_env"] = {"env_steps_per_sec": rate,
                         "launches": sr.sharded_rollout_random.launches}
 
@@ -2761,7 +2785,6 @@ def main(device=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 1
-    from q1physrl_torch import bench
     from q1physrl_torch.algo import evaluate
     from q1physrl_torch.algo.config import load_run_config
     from q1physrl_torch.ops import env_rollout
@@ -2857,9 +2880,9 @@ def main(device=None) -> int:
     sweep = _phase_sweep(device)
     head_launches["sweep"] = ppo_head.launches - head_launches["training"]
 
-    # 6. the bench's env metric through its entry point
+    # 6. the env kernel's rate
     rollout_random.launches = 0
-    env_rate = bench.bench_env_kernel(**BENCH_ENV, device=device)
+    env_rate = _env_kernel_rate(device)
     random_launches = rollout_random.launches
     _emit({"phase": "bench_env", **BENCH_ENV, "launches": random_launches,
            "env_steps_per_sec": env_rate})

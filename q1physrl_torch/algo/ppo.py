@@ -13,16 +13,19 @@ One iteration (:func:`train_iter`) is
 and is split into :func:`rollout` and :func:`learn`, so that a caller can
 time the halves or feed :func:`learn` a trajectory of its own.
 
-Given an env shard (``parallel.mesh.EnvShard``), the same functions run one
-rank of data-parallel training with the semantics of one process: every
-rank holds the run's generator alike and draws each random tensor for the
-whole batch, keeping its envs' share; the learning half gathers the batch
-over the ranks once, and each rank computes the gradient of its 1/W of
-every minibatch, summed over the ranks before the (replicated) Adam step.
+A layout says how an iteration is laid over the ranks: :class:`OneProcess`
+(one process), :class:`GlobalLayout` or ``parallel.spmd.SpmdLayout``; the
+one learning half, :func:`learn`, asks it where the three differ.
+:class:`GlobalLayout`, over an env shard
+(``parallel.mesh.EnvShard``), has the semantics of one process: every rank
+holds the run's generator alike and draws each random tensor for the whole
+batch, keeping its envs' share; the learning half gathers the batch over
+the ranks once, and each rank computes the gradient of its 1/W of every
+minibatch, summed over the ranks before the (replicated) Adam step.
 Advantage standardization and the metrics use sums over the ranks.  In one
-process every such sum is over one rank, so the two paths run the same
-operations.  (``parallel/spmd.py`` holds the other multi-rank mode, with
-local minibatches.)
+process every such sum is over one rank, so the two run the same
+operations.  ``SpmdLayout`` is the explicit data-parallel layout, with
+local minibatches.
 
 The loss is RLLib 0.8.4's PPOLoss (ppo_tf_policy.py): clipped surrogate,
 adaptive KL penalty against the behaviour distribution, entropy bonus, and
@@ -47,8 +50,8 @@ The policy's parameters and the Adam moments are updated in place;
 The learning half records spans (``utils.profiling``): ``ppo.learn``
 around :func:`learn`, ``ppo.gae`` (GAE, standardization, the flat batch),
 ``ppo.epoch`` per epoch and ``ppo.update`` per minibatch, with its
-``ppo.loss``, ``ppo.grad`` (the gradient, summed over the ranks when
-sharded) and ``ppo.adam`` (the clip and the step).
+``ppo.loss``, ``ppo.grad`` (the gradient, reduced over the ranks by the
+layout) and ``ppo.adam`` (the clip and the step), in every layout.
 """
 
 from __future__ import annotations
@@ -76,7 +79,8 @@ from .config import PPOConfig
 __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
            "Trajectory", "init_train_state", "RolloutLoop", "rollout",
            "generator_ids", "compute_gae", "ppo_loss", "loss_terms",
-           "head_terms", "loss_and_stats", "aux_from_stats", "adam_update",
+           "head_terms", "loss_and_stats", "AUX_KEYS", "aux_from_stats",
+           "adam_update", "OneProcess", "ONE_PROCESS", "GlobalLayout",
            "sgd_epochs", "update_kl_coeff", "standardize", "flat_batch",
            "iteration_coeffs", "episode_metrics", "learn", "next_state",
            "train_iter")
@@ -405,8 +409,10 @@ def compute_gae(ppo: PPOConfig, reward, done, value, bootstrap_value):
     return advantages, advantages + value
 
 
-# The means among the loss statistics of loss_and_stats, in its order.
+# The means among the loss statistics of loss_and_stats, in its order, and
+# the keys of aux_from_stats.
 _AUX_MEANS = ("policy_loss", "vf_loss", "kl", "entropy")
+AUX_KEYS = _AUX_MEANS + ("vf_explained_var",)
 
 
 def loss_terms(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
@@ -598,43 +604,98 @@ def _sum_over_ranks(grads, stats, shard):
             parts[-1].view_as(block))
 
 
+class OneProcess:
+    """The layout of one process (see the module's docstring).
+    ``generator``: the stream of an iteration's rollout and permutations;
+    ``shard``: the env shard of :func:`rollout` and :func:`flat_batch`;
+    ``local``: the config whose minibatches the epochs run; ``total``,
+    ``maximum``: a sum, a max over the ranks; ``share``: this rank's rows
+    of the (n_mb, mb_size) minibatch rows; ``scale``: the loss's factor;
+    ``reduce``: a step's gradients and (8,) loss statistics over the
+    ranks; ``epoch_aux``: an epoch's reduced statistics as its aux."""
+
+    name, shard, world_size, scale = "single", None, 1, 1.0
+    total = maximum = staticmethod(lambda x: x)
+
+    def generator(self, ts: TrainState) -> torch.Generator:
+        return ts.generator
+
+    def local(self, ppo: PPOConfig) -> PPOConfig:
+        return ppo
+
+    def share(self, minibatches):
+        return minibatches
+
+    def reduce(self, grads, stats):
+        return grads, stats[None]
+
+    def epoch_aux(self, stats) -> dict:
+        return {k: v.mean() for k, v in aux_from_stats(
+            torch.stack(stats)).items()}
+
+
+ONE_PROCESS = OneProcess()
+
+
+class GlobalLayout(OneProcess):
+    """One rank of an iteration with the semantics of one process (see the
+    module's docstring): the batch gathered over the ranks, this rank's 1/W
+    of every minibatch, the gradients and the (W, 8) statistics summed."""
+
+    name = "global"
+    total = staticmethod(distributed.all_reduce_sum)
+    maximum = staticmethod(distributed.all_reduce_max)
+
+    def __init__(self, shard):
+        self.shard, self.world_size = shard, shard.world_size
+        self.scale = 1.0 / shard.world_size
+
+    def share(self, minibatches):
+        mb_size = minibatches.shape[1]
+        if mb_size % self.world_size:
+            raise ValueError(f"minibatches of {mb_size} rows do not split "
+                             f"evenly over {self.world_size} ranks")
+        rows, r = mb_size // self.world_size, self.shard.rank
+        return minibatches[:, r * rows:(r + 1) * rows]
+
+    def reduce(self, grads, stats):
+        return _sum_over_ranks(grads, stats, self.shard)
+
+
 def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                opt_state: AdamState, kl_coeff, batch: Batch,
                generator: torch.Generator, entropy_coeff=None, lr=None,
-               perms=None, shard=None):
+               perms=None, layout: OneProcess = ONE_PROCESS):
     """num_sgd_iter epochs of minibatched Adam over the flattened batch.
 
-    ``perms``: optional (num_sgd_iter, n_mb * mb_size) permutations of the
-    batch indices; by default each epoch draws one from ``generator`` and
-    keeps its first n_mb * mb_size entries.
+    The epochs run the batch and minibatches of ``layout.local(ppo)``;
+    ``perms``: optional (num_sgd_iter, >= n_mb * mb_size) permutations of
+    the batch indices; by default each epoch draws one from ``generator``.
+    Either way an epoch uses its first n_mb * mb_size entries.
 
-    With an env ``shard`` the batch is the global one, alike on every rank;
-    each rank takes its 1/W of every minibatch's rows, and the gradients of
-    the shares of the minibatch mean are summed over the ranks before the
-    step.
+    ``layout`` (:class:`OneProcess`) picks this rank's rows of each
+    minibatch, scales its loss, and reduces each step's gradients and
+    statistics over the ranks before the step.
 
     Returns (opt_state, aux): aux holds the last epoch's means of the
     per-minibatch loss statistics (RLLib's update_kl reads that KL).
     """
-    n_mb = ppo.num_minibatches
-    mb_size = ppo.batch_size // n_mb
-    w, r = (1, 0) if shard is None else (shard.world_size, shard.rank)
-    if mb_size % w:
-        raise ValueError(f"minibatches of {mb_size} rows do not split evenly "
-                         f"over {w} ranks")
-    rows = mb_size // w
+    local = layout.local(ppo)
+    n_mb = local.num_minibatches
+    mb_size = local.batch_size // n_mb
     params = [dict(policy.named_parameters())[k] for k in opt_state.mu]
     device = batch.obs.device
     aux = {}
     for epoch in range(ppo.num_sgd_iter):
         with span("ppo.epoch"):
             if perms is None:
-                perm = torch.randperm(ppo.batch_size, generator=generator,
-                                      device=device)[:n_mb * mb_size]
+                perm = torch.randperm(local.batch_size, generator=generator,
+                                      device=device)
             else:
                 perm = torch.as_tensor(perms[epoch], device=device)
             # This rank's rows of each minibatch, minibatch after minibatch.
-            mine = perm.view(n_mb, mb_size)[:, r * rows:(r + 1) * rows]
+            mine = layout.share(perm[:n_mb * mb_size].view(n_mb, mb_size))
+            rows = mine.shape[1]
             shuffled = Batch(*(x[mine.reshape(-1)] for x in batch))
             stats = []
             for j in range(n_mb):
@@ -644,20 +705,15 @@ def sgd_epochs(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
                     with span("ppo.loss"):
                         total, mb_stats = loss_and_stats(
                             env_cfg, ppo, policy, mb, kl_coeff,
-                            entropy_coeff, scale=1.0 / w)
+                            entropy_coeff, scale=layout.scale)
                     with span("ppo.grad"):
                         grads = torch.autograd.grad(total, params)
-                        if shard is None:
-                            mb_stats = mb_stats[None]
-                        else:
-                            grads, mb_stats = _sum_over_ranks(grads, mb_stats,
-                                                              shard)
+                        grads, mb_stats = layout.reduce(grads, mb_stats)
                     with span("ppo.adam"):
                         opt_state = adam_update(ppo, params, grads, opt_state,
                                                 lr)
                     stats.append(mb_stats)
-            aux = {k: v.mean() for k, v in
-                   aux_from_stats(torch.stack(stats)).items()}
+            aux = layout.epoch_aux(stats)
     return opt_state, aux
 
 
@@ -745,32 +801,32 @@ def iteration_coeffs(ppo: PPOConfig, ts: TrainState,
 
 def learn(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
           traj: Trajectory, bootstrap_value, coeffs: Optional[Coeffs] = None,
-          perms=None, shard=None):
+          perms=None, layout: OneProcess = ONE_PROCESS, generator=None):
     """The learning half of an iteration on a trajectory whose episode
     statistics are already in ``ts.stats``: GAE, standardization,
     :func:`sgd_epochs`, the KL coefficient.  Returns (TrainState, metrics)
     with metrics as 0-dim tensors; ``perms`` as in :func:`sgd_epochs`.
-    With an env ``shard``, one rank's part of the global iteration (see the
-    module's docstring)."""
+    ``layout``: one rank's part of a multi-rank iteration (see the
+    module's docstring); ``generator``: the stream the rollout drew from,
+    ``layout.generator(ts)``, which draws the permutations (by default
+    ``ts.generator``)."""
     with span("ppo.learn"):
-        w = 1 if shard is None else shard.world_size
-        total = (lambda x: x) if shard is None else distributed.all_reduce_sum
+        w = layout.world_size
         t, n = traj.reward.shape
         with span("ppo.gae"):
             advantages, value_targets = compute_gae(
                 ppo, traj.reward, traj.done, traj.value, bootstrap_value)
-            advantages = standardize(advantages, t * n * w, total)
-            batch = flat_batch(traj, advantages, value_targets, shard)
+            advantages = standardize(advantages, t * n * w, layout.total)
+            batch = flat_batch(traj, advantages, value_targets, layout.shard)
 
         entropy_coeff, lr, kl_target = iteration_coeffs(ppo, ts, coeffs)
-        opt_state, aux = sgd_epochs(env_cfg, ppo, ts.policy, ts.opt_state,
-                                    ts.kl_coeff, batch, ts.generator,
-                                    entropy_coeff, lr, perms, shard)
+        opt_state, aux = sgd_epochs(
+            env_cfg, ppo, ts.policy, ts.opt_state, ts.kl_coeff, batch,
+            ts.generator if generator is None else generator, entropy_coeff,
+            lr, perms, layout)
         kl_coeff = update_kl_coeff(ppo, ts.kl_coeff, aux["kl"], kl_target)
-        maximum = ((lambda x: x) if shard is None
-                   else distributed.all_reduce_max)
         metrics = {**episode_metrics(ts.stats, traj.reward.sum(), t * n * w,
-                                     total, maximum),
+                                     layout.total, layout.maximum),
                    "kl_coeff": kl_coeff, **aux}
         return next_state(ts, opt_state, kl_coeff, t * n * w), metrics
 
@@ -792,11 +848,14 @@ def next_state(ts: TrainState, opt_state: AdamState, kl_coeff,
 
 
 def train_iter(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
-               coeffs: Optional[Coeffs] = None, shard=None):
-    """One full PPO iteration: :func:`rollout`, then :func:`learn`.
-    Returns (TrainState, metrics); ``shard`` as in :func:`learn`."""
+               coeffs: Optional[Coeffs] = None,
+               layout: OneProcess = ONE_PROCESS):
+    """One full PPO iteration: :func:`rollout`, then :func:`learn`, from
+    the layout's generator.  Returns (TrainState, metrics)."""
+    generator = layout.generator(ts)
     env_state, stats, traj, bootstrap_value = rollout(
-        env_cfg, ppo, ts.policy, ts.env_state, ts.stats, ts.generator, shard)
+        env_cfg, ppo, ts.policy, ts.env_state, ts.stats, generator,
+        layout.shard)
     ts = dataclasses.replace(ts, env_state=env_state, stats=stats)
     return learn(env_cfg, ppo, ts, traj, bootstrap_value, coeffs,
-                 shard=shard)
+                 layout=layout, generator=generator)

@@ -46,8 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..analyse import resolve_device
 from ..parallel import distributed
+from ..utils.device import resolve_device
 from . import checkpoint as ckpt
 from . import population
 from .config import PPOConfig, RunConfig, load_run_config

@@ -20,13 +20,15 @@ per frame on the card, the frame captured once as a CUDA graph and replayed
 in every iteration) then ``ppo.learn``; the host loop times the two, prints
 and checkpoints.
 
-Under torchrun each of the W ranks trains on num_envs / W envs; the mode
-follows ``use_shard_map`` as in the JAX package: false keeps the
-semantics of one process (``ppo`` with an env shard), true runs the
-explicit data-parallel iteration (``parallel/spmd.py``).  A rank's device
-is ``cuda:LOCAL_RANK`` unless ``--device`` names one (``--device cuda:0
---backend gloo`` puts several ranks on one card); the backend is ``nccl``
-on cards and ``gloo`` on the CPU unless ``--backend`` says otherwise.
+Under torchrun each of the W ranks trains on num_envs / W envs; the
+layout follows ``use_shard_map`` as in the JAX package: false keeps the
+semantics of one process (``ppo.GlobalLayout``, over an env shard), true
+runs the explicit data-parallel iteration (``parallel.spmd.SpmdLayout``);
+either way the iteration is ``ppo.rollout`` then ``ppo.learn``.  A rank's
+device is ``cuda:LOCAL_RANK`` unless ``--device`` names one (``--device
+cuda:0 --backend gloo`` puts several ranks on one card); the backend is
+``nccl`` on cards and ``gloo`` on the CPU unless ``--backend`` says
+otherwise.
 Rank 0 alone prints, writes metrics and writes checkpoints.
 """
 
@@ -42,14 +44,14 @@ from typing import Optional
 
 import torch
 
-from ..analyse import resolve_device
 from ..parallel import distributed, spmd
 from ..parallel.mesh import env_shard, init_sharded_train_state
 from ..utils import profiling
+from ..utils.device import resolve_device
 from ..utils.metrics_io import MetricsWriter
 from . import checkpoint as ckpt
 from .config import PPOConfig, RunConfig, load_run_config
-from .ppo import init_train_state, learn, rollout
+from .ppo import ONE_PROCESS, GlobalLayout, init_train_state, learn, rollout
 
 __all__ = ("STATS_TO_TRACK", "Trainer", "main")
 
@@ -74,8 +76,10 @@ class Trainer:
     :func:`ppo.learn`.
 
     In a process group every rank builds its own Trainer, on its own
-    ``device``; ``mode`` is ``"global"`` (ppo with an env shard) or, with
-    ``run.use_shard_map``, ``"spmd"``; in one process it is ``"single"``.
+    ``device``.  ``layout`` is picked once: ``ppo.GlobalLayout`` over this
+    rank's env shard or, with ``run.use_shard_map``, ``spmd.SpmdLayout``;
+    in one process ``ppo.ONE_PROCESS``.  ``mode`` names it: ``"global"``,
+    ``"spmd"`` or ``"single"``.
     """
 
     def __init__(self, run: RunConfig, device="cuda"):
@@ -87,19 +91,16 @@ class Trainer:
         self.env_cfg = (dataclasses.replace(run.env, num_envs=None)
                         if run.env.num_envs is not None else run.env)
         self.ppo = run.ppo
-        self.shard = None
         if not distributed.is_initialized():
-            self.mode = "single"
+            self.layout = ONE_PROCESS
             self.ts = init_train_state(run.seed, self.env_cfg, self.ppo,
                                        self.device)
         else:
-            self.mode = "spmd" if run.use_shard_map else "global"
-            if self.mode == "spmd":
-                spmd.local_config(self.ppo, distributed.world_size())
-            self.shard = env_shard(self.ppo.num_envs)
+            shard = env_shard(self.ppo.num_envs)
+            self.layout = (spmd.SpmdLayout(self.ppo) if run.use_shard_map
+                           else GlobalLayout(shard))
             self.ts = init_sharded_train_state(run.seed, self.env_cfg,
-                                               self.ppo, self.shard,
-                                               self.device)
+                                               self.ppo, shard, self.device)
         self.is_main = distributed.rank() == 0
         restore = run.checkpoint_fname
         if restore is None and run.auto_resume:
@@ -115,6 +116,10 @@ class Trainer:
                 self._log_dir(), use_wandb=run.use_wandb,
                 wandb_config=dataclasses.asdict(run))
 
+    @property
+    def mode(self) -> str:
+        return self.layout.name
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -128,21 +133,16 @@ class Trainer:
         calls = profiling.counter("distributed.collectives")
         _, seconds = profiling.total("distributed.collective")
         t0 = time.perf_counter()
-        generator = (spmd.rank_generator(self.ts.generator)
-                     if self.mode == "spmd" else self.ts.generator)
+        generator = self.layout.generator(self.ts)
         env_state, stats, traj, bootstrap_value = rollout(
             self.env_cfg, self.ppo, self.ts.policy, self.ts.env_state,
-            self.ts.stats, generator,
-            self.shard if self.mode == "global" else None)
+            self.ts.stats, generator, self.layout.shard)
         self._sync()
         t1 = time.perf_counter()
         ts = dataclasses.replace(self.ts, env_state=env_state, stats=stats)
-        if self.mode == "spmd":
-            self.ts, metrics = spmd.learn(self.env_cfg, self.ppo, ts, traj,
-                                          bootstrap_value, generator)
-        else:
-            self.ts, metrics = learn(self.env_cfg, self.ppo, ts, traj,
-                                     bootstrap_value, shard=self.shard)
+        self.ts, metrics = learn(self.env_cfg, self.ppo, ts, traj,
+                                 bootstrap_value, layout=self.layout,
+                                 generator=generator)
         metrics = {k: float(v) for k, v in metrics.items()}
         t2 = time.perf_counter()
         return {**metrics, "rollout_seconds": t1 - t0,

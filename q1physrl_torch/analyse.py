@@ -50,6 +50,7 @@ from .ops.sharded_rollout import sharded_rollout_actions
 from .parallel import distributed
 from .parallel.mesh import shard_env_axis
 from .utils.cuda_graph import FrameLoop, LoopCache, resolve_driver
+from .utils.device import resolve_device
 from .utils.profiling import count, span
 
 __all__ = ("EvalSimResult", "eval_sim", "eval_zero_start",
@@ -57,16 +58,6 @@ __all__ = ("EvalSimResult", "eval_sim", "eval_zero_start",
            "draw_inputs", "plot_all_checkpoints")
 
 _PLAYER_FIELDS = tuple(f.name for f in dataclasses.fields(phys.PlayerState))
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises for CUDA without a card
-    rather than falling back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(--device cpu) to run on the CPU")
-    return device
 
 
 def _full_float32_products():

@@ -17,6 +17,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import core
 from .config import Config
 
@@ -69,8 +70,6 @@ class VectorPhysEnv:
 
     def __init__(self, config: Union[Config, dict], seed: int = 0,
                  float_dtype=torch.float32, device="cuda"):
-        from ..analyse import resolve_device
-
         if isinstance(config, dict):
             config = Config(**config)
         self._config = config

@@ -1,7 +1,7 @@
 """Data-parallel training over ``torch.distributed``: the process group and
 its collectives (``distributed``), the layout of state over the ranks
-(``mesh``), and the explicit data-parallel iteration (``spmd``, imported on
-its own)."""
+(``mesh``), and the explicit data-parallel layout of the learning half
+(``spmd``, imported on its own)."""
 
 from . import distributed
 from .mesh import (DATA_AXIS, EnvShard, env_shard, init_sharded_train_state,

@@ -1,4 +1,4 @@
-"""The explicit data-parallel training iteration (``use_shard_map: true``).
+"""The explicit data-parallel layout (``use_shard_map: true``).
 
 Each rank rolls out its own envs with its own random stream, shuffles and
 minibatches locally (minibatches of ``sgd_minibatch_size / W`` rows), and
@@ -7,7 +7,8 @@ and the loss statistics at every Adam step (one all-reduce per step), and
 to sum the episode metrics (their max for ``episode_reward_max``).  The
 minibatches are thus equal local slices of a global one, the standard
 large-scale PPO layout; the gradient's expectation is that of one process.
-``algo/ppo.py`` with an env shard is the other multi-rank mode, with the
+:class:`SpmdLayout` says so to the one learning half, ``algo/ppo.py``'s
+``learn``; ``ppo.GlobalLayout`` is the other multi-rank layout, with the
 semantics of one process.
 
 The run's generator stays alike on every rank: at the top of an iteration
@@ -25,15 +26,14 @@ from typing import Optional
 import torch
 
 from ..algo.config import PPOConfig
-from ..algo.ppo import (Batch, Coeffs, TrainState, Trajectory, adam_update,
-                        aux_from_stats, compute_gae, episode_metrics,
-                        flat_batch, iteration_coeffs, loss_and_stats,
-                        next_state, rollout, standardize, update_kl_coeff)
+from ..algo.ppo import (AUX_KEYS, Coeffs, OneProcess, TrainState,
+                        aux_from_stats, train_iter)
 from ..env.config import Config as EnvConfig
 from ..utils.cuda_graph import LoopCache
 from . import distributed
 
-__all__ = ("make_spmd_train_iter", "rank_generator", "local_config", "learn")
+__all__ = ("make_spmd_train_iter", "rank_generator", "local_config",
+           "SpmdLayout")
 
 _MASK64 = (1 << 64) - 1
 # The rank generators that rank_generator reseeds, by (id of the run
@@ -87,56 +87,33 @@ def _mean_over_ranks(grads, aux):
     return [p.view_as(g) for p, g in zip(parts, grads)], parts[-1]
 
 
-def learn(env_cfg: EnvConfig, ppo: PPOConfig, ts: TrainState,
-          traj: Trajectory, bootstrap_value, generator: torch.Generator,
-          coeffs: Optional[Coeffs] = None, perms=None):
-    """The learning half of one rank's iteration on its local trajectory.
+class SpmdLayout(OneProcess):
+    """One rank of the explicit data-parallel iteration: this rank's stream
+    (:func:`rank_generator`), its local batch and minibatches
+    (:func:`local_config`), each step's gradients and five aux values
+    averaged over the ranks."""
 
-    ``generator``: this rank's stream (:func:`rank_generator`), which draws
-    each epoch's local permutation; ``perms``: (num_sgd_iter, local batch)
-    permutations to use instead.  Returns (TrainState, metrics), the
-    metrics alike on every rank.
-    """
-    w = distributed.world_size()
-    local = local_config(ppo, w)
-    total = distributed.all_reduce_sum
-    t, n = traj.reward.shape
-    advantages, value_targets = compute_gae(local, traj.reward, traj.done,
-                                            traj.value, bootstrap_value)
-    advantages = standardize(advantages, t * n * w, total)
-    batch = flat_batch(traj, advantages, value_targets)
-    entropy_coeff, lr, kl_target = iteration_coeffs(ppo, ts, coeffs)
+    name = "spmd"
+    total = staticmethod(distributed.all_reduce_sum)
+    maximum = staticmethod(distributed.all_reduce_max)
 
-    n_mb = local.num_minibatches
-    mb_size = local.batch_size // n_mb
-    params = [dict(ts.policy.named_parameters())[k] for k in ts.opt_state.mu]
-    opt_state = ts.opt_state
-    keys = None
-    for epoch in range(ppo.num_sgd_iter):
-        if perms is None:
-            perm = torch.randperm(local.batch_size, generator=generator,
-                                  device=batch.obs.device)
-        else:
-            perm = torch.as_tensor(perms[epoch], device=batch.obs.device)
-        shuffled = Batch(*(x[perm[:n_mb * mb_size]] for x in batch))
-        stats = []
-        for j in range(n_mb):
-            mb = Batch(*(x[j * mb_size:(j + 1) * mb_size] for x in shuffled))
-            loss, mb_stats = loss_and_stats(env_cfg, ppo, ts.policy, mb,
-                                            ts.kl_coeff, entropy_coeff)
-            grads = torch.autograd.grad(loss, params)
-            mb_aux = aux_from_stats(mb_stats[None])
-            keys = list(mb_aux)
-            grads, mb_aux = _mean_over_ranks(
-                grads, torch.stack([mb_aux[k] for k in keys]))
-            opt_state = adam_update(ppo, params, grads, opt_state, lr)
-            stats.append(mb_aux)
-        aux = dict(zip(keys, torch.stack(stats).mean(0)))
-    kl_coeff = update_kl_coeff(ppo, ts.kl_coeff, aux["kl"], kl_target)
-    metrics = {**episode_metrics(ts.stats, traj.reward.sum(), t * n * w,
-                                 total, distributed.all_reduce_max),
-               "kl_coeff": kl_coeff, **aux}
-    return next_state(ts, opt_state, kl_coeff, t * n * w), metrics
+    def __init__(self, ppo: PPOConfig):
+        self.world_size = distributed.world_size()
+        local_config(ppo, self.world_size)  # raises unless ppo splits
+
+    def generator(self, ts: TrainState) -> torch.Generator:
+        return rank_generator(ts.generator)
+
+    def local(self, ppo: PPOConfig) -> PPOConfig:
+        return local_config(ppo, self.world_size)
+
+    def reduce(self, grads, stats):
+        aux = aux_from_stats(stats[None])
+        return _mean_over_ranks(grads,
+                                torch.stack([aux[k] for k in AUX_KEYS]))
+
+    def epoch_aux(self, stats) -> dict:
+        return dict(zip(AUX_KEYS, torch.stack(stats).mean(0)))
 
 
 def make_spmd_train_iter(env_cfg: EnvConfig, ppo: PPOConfig,
@@ -145,7 +122,7 @@ def make_spmd_train_iter(env_cfg: EnvConfig, ppo: PPOConfig,
     ``fn(ts, coeffs)`` with ``with_coeffs=True``, where entropy, lr and KL
     target come in at run time (as population sweeps drive them).  ``ts``
     holds this rank's envs (``parallel.mesh``)."""
-    local_config(ppo, distributed.world_size())
+    layout = SpmdLayout(ppo)
     if with_coeffs and ppo.lr_schedule is not None:
         raise ValueError("with_coeffs=True requires ppo.lr_schedule=None "
                          "(a configured lr schedule would override "
@@ -154,11 +131,6 @@ def make_spmd_train_iter(env_cfg: EnvConfig, ppo: PPOConfig,
     def fn(ts: TrainState, coeffs: Optional[Coeffs] = None):
         if with_coeffs != (coeffs is not None):
             raise TypeError("pass coeffs exactly when built with_coeffs")
-        generator = rank_generator(ts.generator)
-        env_state, stats, traj, bootstrap_value = rollout(
-            env_cfg, ppo, ts.policy, ts.env_state, ts.stats, generator)
-        ts = dataclasses.replace(ts, env_state=env_state, stats=stats)
-        return learn(env_cfg, ppo, ts, traj, bootstrap_value, generator,
-                     coeffs)
+        return train_iter(env_cfg, ppo, ts, coeffs, layout)
 
     return fn

@@ -41,6 +41,7 @@ from .. import phys
 from ..env.config import Config
 from . import demfile
 from .demfile import ServerMessageType as SVC
+from .device import resolve_device
 from .netclient import (CCREP_ACCEPT, CCREQ_CONNECT, CLC_DISCONNECT,
                         CLC_MOVE, CLC_NOP, CLC_STRINGCMD, NETFLAG_CTL,
                         NetQuakePacketLayer, _header)
@@ -71,8 +72,6 @@ class LockstepServer:
     def __init__(self, config: Optional[Config] = None,
                  level_name: str = "100m", finish_y: float = 3600.0,
                  device="cuda"):
-        from ..analyse import resolve_device
-
         self.config = config or Config.get_default()
         self.device = resolve_device(device)
         self.level_name = level_name

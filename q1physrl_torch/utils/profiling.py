@@ -38,6 +38,8 @@ import time
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from .device import resolve_device
+
 __all__ = ("Event", "Store", "STORE", "span", "count", "events", "total",
            "counter", "counters", "trace", "device_memory_stats")
 
@@ -173,8 +175,6 @@ def device_memory_stats(device="cuda") -> dict:
     """The card's allocator statistics (bytes and counts,
     ``torch.cuda.memory_stats``); an empty dict for the CPU, whose
     allocator keeps none.  Raises for ``cuda`` without a card."""
-    from ..analyse import resolve_device
-
     device = resolve_device(device)
     if device.type != "cuda":
         return {}

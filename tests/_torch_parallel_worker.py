@@ -27,6 +27,7 @@ from q1physrl_torch.parallel import distributed, spmd  # noqa: E402
 from q1physrl_torch.parallel.mesh import (env_shard,  # noqa: E402
                                           init_sharded_train_state,
                                           shard_env_axis)
+from q1physrl_torch.utils import profiling  # noqa: E402
 
 STATE_LEAVES = ("z_pos", "vel_x", "vel_y", "vel_z", "on_ground",
                 "jump_released", "yaw", "time_remaining", "zero_start",
@@ -102,27 +103,36 @@ def task_global(args, inputs, device):
     cfg, ppo, shard, ts = _setup(args, device)
     metrics = []
     for _ in range(args["iterations"]):
-        ts, m = tppo.train_iter(cfg, ppo, ts, shard=shard)
+        ts, m = tppo.train_iter(cfg, ppo, ts,
+                                layout=tppo.GlobalLayout(shard))
         metrics.append(_floats(m))
     return {"params": _params(ts), "metrics": metrics,
             "iteration": ts.iteration, "env_steps": ts.env_steps}
 
 
 def task_spmd_learn(args, inputs, device):
-    """One spmd iteration with the parent's local permutations; returns the
-    rank's trajectory and starting params too, for the JAX composition."""
+    """One spmd iteration, its learning half ``ppo.learn`` under the spmd
+    layout with the parent's local permutations; returns the rank's
+    trajectory and starting params too, for the JAX composition, and the
+    learning half's spans as (name, id, parent, root)."""
     cfg, ppo, shard, ts = _setup(args, device)
     params0 = _params(ts)
-    gen = spmd.rank_generator(ts.generator)
+    layout = spmd.SpmdLayout(ppo)
+    gen = layout.generator(ts)
     env_state, stats, traj, boot = tppo.rollout(
         cfg, ppo, ts.policy, ts.env_state, ts.stats, gen)
     ts = dataclasses.replace(ts, env_state=env_state, stats=stats)
     perms = inputs["perms"][distributed.rank()]
-    new, metrics = spmd.learn(cfg, ppo, ts, traj, boot, gen, perms=perms)
+    new, metrics = tppo.learn(cfg, ppo, ts, traj, boot, perms=perms,
+                              layout=layout, generator=gen)
+    learn = profiling.events("ppo.learn")[-1]
+    spans = [(e.name, e.id, e.parent, e.root) for e in profiling.events()
+             if e.root == learn.id]
     return {"params0": params0, "traj": traj._asdict(), "boot": boot,
             "params": _params(new), "mu": new.opt_state.mu,
             "nu": new.opt_state.nu, "count": new.opt_state.count,
-            "metrics": _floats(metrics), "kl_coeff": float(new.kl_coeff)}
+            "metrics": _floats(metrics), "kl_coeff": float(new.kl_coeff),
+            "spans": spans}
 
 
 def task_spmd_coeffs(args, inputs, device):

@@ -373,18 +373,26 @@ def _jax_composition(ranks, ppo: TPPOConfig, perms):
     return params, adam, aux, kl_coeff
 
 
-def test_spmd_learning_half_matches_jax_composition(tmp_path):
-    """Two ranks' spmd learning half on the parent's local permutations,
-    against JAX's, at the tolerances of tests/test_torch_train.py:572-584
-    (params to lr / 10, moments to 1e-3 relative, metrics to 1e-4)."""
+@pytest.fixture(scope="module")
+def spmd_learn_runs(tmp_path_factory):
+    """One spmd iteration in two ranks, its learning half ``ppo.learn``
+    under the spmd layout on the parent's local permutations."""
     ppo = TPPOConfig(**SMALL_PPO, lr=1e-4)
     local_batch = ppo.batch_size // 2
     rng = np.random.default_rng(5)
     perms = np.stack([[rng.permutation(local_batch)
                        for _ in range(ppo.num_sgd_iter)] for _ in range(2)])
-    ranks = run_ranks("spmd_learn", tmp_path,
+    ranks = run_ranks("spmd_learn", tmp_path_factory.mktemp("spmd_learn"),
                       {"ppo": dataclasses.asdict(ppo), "seed": 2},
                       {"perms": torch.from_numpy(perms)})
+    return ranks, ppo, perms
+
+
+def test_spmd_learning_half_matches_jax_composition(spmd_learn_runs):
+    """Two ranks' spmd learning half on the parent's local permutations,
+    against JAX's, at the tolerances of tests/test_torch_train.py:572-584
+    (params to lr / 10, moments to 1e-3 relative, metrics to 1e-4)."""
+    ranks, ppo, perms = spmd_learn_runs
     # The ranks rolled out different streams from one generator.
     assert not torch.equal(ranks[0]["traj"]["yaw_actions"],
                            ranks[1]["traj"]["yaw_actions"])
@@ -417,6 +425,26 @@ def test_spmd_learning_half_matches_jax_composition(tmp_path):
         np.testing.assert_allclose(r["metrics"][k], float(aux[k]), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
     _assert_same_metrics(r["metrics"], ranks[1]["metrics"])
+
+
+def test_spmd_iteration_records_the_learning_spans(spmd_learn_runs):
+    """The spmd layout runs the one learning half, so every rank records
+    its spans: one ``ppo.learn``, and per epoch of the local config's
+    minibatches one ``ppo.update`` each, with ``ppo.loss``, ``ppo.grad``
+    and ``ppo.adam`` inside, in that order."""
+    ranks, ppo, _ = spmd_learn_runs
+    local = spmd.local_config(ppo, len(ranks))
+    for r in ranks:
+        spans = sorted(r["spans"], key=lambda s: s[1])
+        assert [s[0] for s in spans].count("ppo.learn") == 1
+        epochs = [s for s in spans if s[0] == "ppo.epoch"]
+        updates = [s for s in spans if s[0] == "ppo.update"]
+        assert len(epochs) == ppo.num_sgd_iter
+        assert len(updates) == ppo.num_sgd_iter * local.num_minibatches
+        for u in updates:
+            assert u[2] in {e[1] for e in epochs}
+            assert [s[0] for s in spans if s[2] == u[1]] == [
+                "ppo.loss", "ppo.grad", "ppo.adam"]
 
 
 def test_spmd_coeffs_equal_static_and_lr0_freezes(tmp_path):

@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
 1. device    — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build     — compiles the rollout library (kernels rollout_actions,
                rollout_actions_autoreset and rollout_random), the PPO loss
-               head's (ops/ppo_head.py) and curand's Philox yardstick from
-               the checkout, one nvcc each, together.
+               head's (ops/ppo_head.py), Adam's step (ops/adam.py) and
+               curand's Philox yardstick from the checkout, one nvcc each,
+               together.
 3. kernels   — prints how each kernel launches at its main path's shape
                (threads per block, blocks resident per SM, waves), then
                holds each kernel against its plain PyTorch version on the
@@ -37,6 +38,15 @@ Phases, each printing one JSON line:
                the forward terms and the value's gradient against the
                plain version to the bit, the logits' within PPO_HEAD_ULPS,
                timed beside the whole loss through the composed head.
+               Adam's step at the same cells' shapes (params_tpu's 12 solo
+               leaves; 4 stacked members with the towers' transposed weight
+               gradients): the fused step against the composed one through
+               the call sites over 5 steps, parameters and moments to the
+               bit, one launch a step; timed fused (CUDA events and a
+               graph's replay) beside the composed step, the plain version
+               and its byte bound (``roofline_pct``).  Phases 5 and 5a
+               count the Adam steps by call site and path: every one fused,
+               one launch each (the kernels line's ``steps_by_path``).
 4. scoring   — runs the evaluate CLI on the shipped ``tpu_pb`` checkpoint under
                ``configs/run4.yml`` (512 stochastic + 2 deterministic zero-start
                episodes), checks one kernel launch per env step and the scores
@@ -163,6 +173,7 @@ the result line.  Without a CUDA card it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -286,6 +297,13 @@ PPO_HEAD_SHAPES = {"train": ("params_tpu.yml", 1, 8192, 1000, 50),
 # ulps: the plain version takes the contracted multiply-adds in float64,
 # which rounds twice.
 PPO_HEAD_ULPS = 1
+# Adam's step at the training cells' shapes: (members, rows per member of
+# the stacked backward that makes the gradients, reps, plain reps).
+ADAM_SHAPES = {"train": (1, None, 1000, 50), "sweep": (4, 128, 1000, 50)}
+# Consecutive steps over which the fused step is held to the composed one.
+ADAM_CHECK_STEPS = 5
+# Bytes an element of one step moves: p, g, m, v read, p, m, v written.
+ADAM_BYTES_PER_ELEMENT = 28
 BENCH_ENV = dict(n=1 << 20, t=720, reps=3)
 # One training iteration: at run_tpu_e3's 18,432 Adam steps of 128 rows an
 # iteration took 115-280 s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
@@ -1013,6 +1031,158 @@ def _phase_ppo_head(device):
         _emit({"phase": "kernel_timing", "kernel": "ppo_head",
                "shape": shape, **timings[shape]})
     return timings, max_err
+
+
+@contextlib.contextmanager
+def _adam_path(fused):
+    """Adam's steps inside take the fused step where the call site would,
+    or the composed one."""
+    from q1physrl_torch.algo import ppo as ppo_mod
+
+    choose = ppo_mod._takes_fused_adam
+    if not fused:
+        ppo_mod._takes_fused_adam = lambda *a: None
+    try:
+        yield
+    finally:
+        ppo_mod._takes_fused_adam = choose
+
+
+def _adam_case(members, rows, seed, device):
+    """Adam's leaves at a training cell's shape: params_tpu's 12 solo leaves
+    with seeded gradients, or ``members`` stacked members (run4) with the
+    gradients of one backward of ``population_loss_and_stats`` on ``rows``
+    rows each (the towers' own transposed weight gradients).  Returns a
+    namespace: ``step(fused)`` runs one step through the call site
+    (``adam_update`` or ``adam_step``; :func:`_adam_path`), ``state()``
+    copies the parameters and moments, ``p``, ``grads``, ``m``, ``v`` and
+    the coefficients are what :func:`ops.adam.adam` takes."""
+    import types
+
+    import torch
+
+    from q1physrl_torch.algo import population
+    from q1physrl_torch.algo import ppo as ppo_mod
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.models.policy import action_dist
+
+    gen = torch.Generator(device).manual_seed(seed)
+    case = types.SimpleNamespace()
+    if members == 1:
+        run = load_run_config(str(PARAMS_YAML))
+        ts = ppo_mod.init_train_state(seed, run.env, run.ppo, device)
+        named = dict(ts.policy.named_parameters())
+        case.p = [named[k] for k in ts.opt_state.mu]
+        case.m = list(ts.opt_state.mu.values())
+        case.v = list(ts.opt_state.nu.values())
+        case.grads = [torch.randn(p.shape, generator=gen, device=device)
+                      for p in case.p]
+        case.coeffs = (1.0, 1.0, -1e-5)
+
+        def step(fused):
+            with _adam_path(fused):
+                ppo_mod.adam_update(run.ppo, case.p, case.grads,
+                                    ts.opt_state)
+    else:
+        run = load_run_config(str(RUN_YAML))
+        ppo = dataclasses.replace(run.ppo, num_envs=rows, rollout_length=1,
+                                  sgd_minibatch_size=rows)
+        ps = population.init_population(
+            [seed + i for i in range(members)], run.env, ppo, device)
+        x = ppo_head_inputs(run.env, ppo, members, rows, seed, device)
+        obs = torch.randn((members, rows, 6), generator=gen, device=device)
+        with torch.no_grad():
+            logits, value = ps.policy(obs)
+            logp = action_dist(run.env, logits).logp(
+                x["key_actions"].movedim(-1, 0), x["yaw_actions"])
+        # The behaviour a rollout records, moved a little.
+        mb = ppo_mod.Batch(obs=obs, key_actions=x["key_actions"],
+                           yaw_actions=x["yaw_actions"],
+                           logits=logits + 0.1, logp=logp + 0.1,
+                           value=value + 0.1, advantage=x["advantage"],
+                           value_target=x["value_target"])
+        total, _ = population.population_loss_and_stats(
+            run.env, ppo, ps.policy, mb, x["kl_coeff"][:, None],
+            x["entropy_coeff"][:, None])
+        case.grads = list(torch.autograd.grad(total,
+                                              list(ps.policy.parameters())))
+        bc1, bc2 = population.bias_corrections([0, 3, 40, 1000][:members],
+                                               1, device)
+        neg_lr = -torch.logspace(-5.5, -4, members, device=device)[:, None]
+        case.p, case.m, case.v = ps.policy.flat, ps.mu, ps.nu
+        case.coeffs = (bc1[0], bc2[0], neg_lr)
+
+        def step(fused):
+            with _adam_path(fused):
+                population.adam_step(ppo, ps, case.grads, *case.coeffs)
+
+    def state():
+        return [x.detach().clone() for x in (
+            list(case.p) + list(case.m) + list(case.v))]
+
+    case.step, case.state = step, state
+    return case
+
+
+def _phase_adam(device):
+    """Adam's step (``ops/adam.py``) at the training cells' shapes
+    (params_tpu's solo leaves; 4 stacked members, each its own rate and
+    bias corrections): the fused step against the composed one over
+    ADAM_CHECK_STEPS steps from one start, to the bit in the parameters
+    and moments, through the call sites (``ppo.adam_update``,
+    ``population.adam_step``), one launch a step.  Then one step timed
+    through the call site, fused (CUDA events, and replayed from a graph)
+    and composed, beside the plain version and the kernel's byte bound
+    (``roofline_pct``: the bound over ``graph_ms``).  Returns
+    ({shape: timing}, the largest difference)."""
+    from q1physrl_torch.algo import ppo as ppo_mod
+    from q1physrl_torch.ops import adam as adam_ops
+
+    timings, max_err = {}, 0.0
+    for seed, (shape, (members, rows, reps, plain_reps)) in enumerate(
+            ADAM_SHAPES.items(), 400):
+        out = {"members": members, "steps_checked": ADAM_CHECK_STEPS}
+        ends = {}
+        for fused in (True, False):
+            case = _adam_case(members, rows, seed, device)
+            launches = adam_ops.adam.launches
+            for _ in range(ADAM_CHECK_STEPS):
+                case.step(fused)
+            if adam_ops.adam.launches - launches != (
+                    ADAM_CHECK_STEPS if fused else 0):
+                raise AssertionError(f"adam {shape}: not one launch a "
+                                     f"fused step")
+            ends[fused] = case.state()
+        err = _bitwise(f"adam {shape}", max(
+            float((a - b).abs().max())
+            for a, b in zip(ends[True], ends[False])))
+        max_err = max(max_err, err)
+        case = _adam_case(members, rows, seed, device)
+        n = sum(g.numel() for g in case.grads)
+        out.update(elements=n, max_abs_err=err)
+        out.update(
+            ms=_time_ms(lambda: case.step(True), reps),
+            graph_ms=_graph_ms(lambda: case.step(True), min(reps, 100)),
+            composed_ms=_time_ms(lambda: case.step(False), plain_reps),
+            composed_graph_ms=_graph_ms(lambda: case.step(False), 20),
+            plain_ms=_time_ms(lambda: adam_ops.adam_plain(
+                ppo_mod.ADAM, case.p, case.grads, case.m, case.v,
+                *case.coeffs), plain_reps),
+            **_least_time(ADAM_BYTES_PER_ELEMENT * n, 0))
+        out["roofline_pct"] = 100 * out["bound_ms"] / out["graph_ms"]
+        timings[shape] = out
+        _emit({"phase": "kernel_timing", "kernel": "adam",
+               "shape": shape, **out})
+    return timings, max_err
+
+
+def _adam_counters(since=None):
+    """The counters of Adam's steps by call site and path, less ``since``'s."""
+    from q1physrl_torch.utils import profiling
+
+    now = {f"{site}.{path}_adam": profiling.counter(f"{site}.{path}_adam")
+           for site in ("ppo", "population") for path in ("fused", "composed")}
+    return {k: v - (since or {}).get(k, 0) for k, v in now.items()}
 
 
 def _phase_autoreset(run, device):
@@ -2791,6 +2961,7 @@ def main(device=None) -> int:
     from q1physrl_torch.ops.env_rollout import (rollout_actions,
                                                 rollout_actions_sampled,
                                                 rollout_random)
+    from q1physrl_torch.ops.adam import adam
     from q1physrl_torch.ops.ppo_head import ppo_head
 
     device = torch.device("cuda", 0) if device is None else device
@@ -2817,7 +2988,7 @@ def main(device=None) -> int:
     _emit({"phase": "build",
            "kernels": ["rollout_actions", "rollout_actions_autoreset",
                        "rollout_random", "ppo_head_forward",
-                       "ppo_head_backward"],
+                       "ppo_head_backward", "adam"],
            "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
            "seconds": build_s})
 
@@ -2836,6 +3007,7 @@ def main(device=None) -> int:
     autoreset_t, autoreset_err = _phase_autoreset(run, device)
     random_t, random_err = _phase_random(run, device)
     head_t, head_err = _phase_ppo_head(device)
+    adam_t, adam_err = _phase_adam(device)
 
     # 4. scoring through the evaluate CLI
     steps = int(np.ceil(run.env.time_limit / run.env.time_delta)) + 2
@@ -2874,11 +3046,24 @@ def main(device=None) -> int:
     demo_launches, demo_err = _phase_demo(device, card, steps)
 
     # 5. training through the Trainer; 5a. a population through the sweep
-    ppo_head.launches = 0
+    ppo_head.launches = adam.launches = 0
+    before = _adam_counters()
     training = _phase_training(device, card)
     head_launches = {"training": ppo_head.launches}
+    adam_launches = {"training": adam.launches}
+    adam_steps = {"training": _adam_counters(before)}
+    before = _adam_counters()
     sweep = _phase_sweep(device)
     head_launches["sweep"] = ppo_head.launches - head_launches["training"]
+    adam_launches["sweep"] = adam.launches - adam_launches["training"]
+    adam_steps["sweep"] = _adam_counters(before)
+    for name, counted in adam_steps.items():
+        composed = {k: v for k, v in counted.items() if "composed" in k}
+        if any(composed.values()) or adam_launches[name] != sum(
+                counted.values()):
+            raise RuntimeError(f"{name}: Adam steps by path {counted}, "
+                               f"{adam_launches[name]} launches; every step "
+                               f"fused, one launch each, expected")
 
     # 6. the env kernel's rate
     rollout_random.launches = 0
@@ -2942,12 +3127,20 @@ def main(device=None) -> int:
                        head_t["train"], head_err, head_t)
     head_entry.update(source="q1physrl_torch/ops/csrc/ppo_head.cu",
                       replaces=None, launches_by_path=head_launches)
+    # Adam's step replaces no TPU kernel either: one launch a step, its time
+    # and bound at params_tpu's shape.
+    adam_entry = entry("adam", None, sum(adam_launches.values()),
+                       adam_t["train"], adam_err, adam_t)
+    adam_entry.update(source="q1physrl_torch/ops/csrc/adam.cu",
+                      replaces=None, launches_by_path=adam_launches,
+                      steps_by_path=adam_steps)
     _emit({"kernels": [
         actions_entry,
         autoreset_entry,
         entry("rollout_random", 343, random_launches, random_t["bench"],
               random_err, random_t),
         head_entry,
+        adam_entry,
         *sharded_entries,
     ]})
     _emit({"ok": True, "device": {"platform": "gpu",

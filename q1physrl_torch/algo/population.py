@@ -12,7 +12,7 @@ compiled program.  Here the P members share each launch instead:
   over members of each member's mean loss (so member gradients stay
   apart), and one Adam step on the stacked ``(P, D)`` parameters, with
   each member's global-norm clip, learning rate, bias corrections and
-  update count.
+  update count (on a card, unclipped, one kernel: ``ops/adam.py``).
 
 Member i draws from its own ``torch.Generator`` what a run of its seed
 (``ppo.init_train_state``) would, in the same order and shapes: its policy
@@ -40,6 +40,7 @@ import torch
 from ..env import core as env_core
 from ..env.config import Config as EnvConfig
 from ..models.policy import StackedPolicy
+from ..ops import adam as adam_ops
 from ..ops.env_rollout import rollout_actions_autoreset
 from ..parallel.mesh import EnvShard, shard_env_axis
 from ..utils.cuda_graph import LoopCache, param_addresses
@@ -250,7 +251,21 @@ def adam_step(ppo: PPOConfig, ps: PopulationState, grads, bc1, bc2,
     """One Adam step of every member on the stacked parameters, in place:
     ``ppo.adam_update``'s operations on (P, D) tensors, with each member's
     global-norm clip, bias corrections ``bc1``/``bc2`` (P, 1) and learning
-    rate (``neg_lr``: (P, 1), negated)."""
+    rate (``neg_lr``: (P, 1), negated).
+
+    Where ``ppo._takes_fused_adam`` holds, the fused step (``ops.adam``,
+    one kernel, each gradient read where autograd left it) runs; else the
+    composed step on the flattened gradients.  The counters
+    ``population.fused_adam`` and ``population.composed_adam`` count the
+    steps of each."""
+    flat = ps.policy.flat
+    table = ppo_mod._takes_fused_adam(ppo, flat, grads, ps.mu, ps.nu, bc1)
+    if table:
+        count("population.fused_adam")
+        adam_ops.adam(ppo_mod.ADAM, flat, grads, ps.mu, ps.nu, bc1, bc2,
+                      neg_lr, table=table)
+        return
+    count("population.composed_adam")
     g = ps.policy.flatten(grads)
     if ppo.grad_clip is not None:
         norm = torch.sqrt(torch.sum(g * g, 1, keepdim=True))

@@ -38,7 +38,9 @@ follows the reference's optimizer to its rounding: moments as
 ``(1 - b1) * g + b1 * mu``, bias correction by division, ``eps`` added
 outside the square root, global-norm clipping as
 ``(g / norm) * max_norm`` only when the norm reaches ``max_norm``, and the
-learning-rate schedule read at the update count *before* the step.
+learning-rate schedule read at the update count *before* the step.  On a
+card an unclipped step is one kernel (``ops/adam.py``), else multi-tensor
+operations; both give the same bits.
 
 Episode metrics (episode_reward_mean/max, episode_len_mean, and the
 north-star zero_start_total_reward_mean) are accumulated on the device in
@@ -67,6 +69,7 @@ from ..env import core as env_core
 from ..env.config import Config as EnvConfig
 from ..models.distributions import draw
 from ..models.policy import Policy, action_dist
+from ..ops import adam as adam_ops
 from ..ops.env_rollout import rollout_actions_autoreset
 from ..ops.ppo_head import HeadParams, ppo_head
 from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
@@ -86,6 +89,7 @@ __all__ = ("EpisodeStats", "AdamState", "TrainState", "Coeffs", "Batch",
            "train_iter")
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # TF AdamOptimizer defaults
+ADAM = adam_ops.AdamParams(ADAM_B1, ADAM_B2, ADAM_EPS)
 
 
 @dataclasses.dataclass
@@ -560,33 +564,55 @@ def _clip_by_global_norm(grads, max_norm: float):
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
 
+def _takes_fused_adam(ppo: PPOConfig, params, grads, mu, nu, bc1):
+    """Whether an Adam step takes the fused step (``ops.adam``, one kernel):
+    no global-norm clip (it needs the gradients' norm first), and float32
+    leaves on a card laid out as the kernel reads them.  Returns the
+    kernel's leaf table (``ops.adam.leaf_table``) where it does, else None:
+    everything else (the CPU, float64, a clip) runs the composed step."""
+    if ppo.grad_clip is not None:
+        return None
+    return adam_ops.leaf_table(params, grads, mu, nu, bc1)
+
+
 def adam_update(ppo: PPOConfig, params, grads, state: AdamState,
                 lr: Optional[float] = None) -> AdamState:
     """One Adam step (with the optional global-norm clip) on ``params`` in
-    place, with multi-tensor (``_foreach``) operations; ``params`` and
-    ``grads`` in the order of ``state.mu``.  ``lr`` overrides the
-    configured rate or schedule."""
+    place; ``params`` and ``grads`` in the order of ``state.mu``.  ``lr``
+    overrides the configured rate or schedule.
+
+    Where :func:`_takes_fused_adam` holds, the fused step (``ops.adam``,
+    one kernel) runs; else the composed step, multi-tensor (``_foreach``)
+    operations.  The counters ``ppo.fused_adam`` and ``ppo.composed_adam``
+    count the steps of each."""
     if lr is None:
         lr = _learning_rate(ppo, state.count)
-    if ppo.grad_clip is not None:
-        grads = _clip_by_global_norm(grads, ppo.grad_clip)
     mu, nu = list(state.mu.values()), list(state.nu.values())
-    count = state.count + 1
-    bc1 = float(np.float32(1 - ADAM_B1 ** count))
-    bc2 = float(np.float32(1 - ADAM_B2 ** count))
-    with torch.no_grad():
-        torch._foreach_mul_(mu, ADAM_B1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
-        torch._foreach_mul_(nu, ADAM_B2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - ADAM_B2))
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        torch._foreach_mul_(updates, -lr)
-        torch._foreach_add_(params, updates)
-    state.count = count
+    steps = state.count + 1
+    bc1 = float(np.float32(1 - ADAM_B1 ** steps))
+    bc2 = float(np.float32(1 - ADAM_B2 ** steps))
+    table = _takes_fused_adam(ppo, params, grads, mu, nu, bc1)
+    if table:
+        count("ppo.fused_adam")
+        adam_ops.adam(ADAM, params, grads, mu, nu, bc1, bc2, -lr,
+                      table=table)
+    else:
+        count("ppo.composed_adam")
+        if ppo.grad_clip is not None:
+            grads = _clip_by_global_norm(grads, ppo.grad_clip)
+        with torch.no_grad():
+            torch._foreach_mul_(mu, ADAM_B1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
+            torch._foreach_mul_(nu, ADAM_B2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - ADAM_B2))
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, ADAM_EPS)
+            updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            torch._foreach_mul_(updates, -lr)
+            torch._foreach_add_(params, updates)
+    state.count = steps
     return state
 
 

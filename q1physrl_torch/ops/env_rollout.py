@@ -64,15 +64,19 @@ __all__ = ("rollout_actions", "rollout_actions_plain",
            "rollout_random", "rollout_random_plain", "random_frame_inputs",
            "FRAMES_PER_DRAW", "philox4x32_10", "uniform_from_bits",
            "uniform_from_low_bytes", "launch_shape", "build", "build_all",
-           "compile_library")
+           "compile_library", "LEARNING_LIBRARIES")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # Each library and its source.  philox_check holds curand's Philox, the
 # yardstick chip_smoke.py compares the kernels' own with; no path runs it.
-# ppo_head holds the PPO loss head's kernels (ops/ppo_head.py).
+# ppo_head holds the PPO loss head's kernels (ops/ppo_head.py), adam Adam's
+# step (ops/adam.py).
 _SOURCES = {"env_rollout": "env_rollout.cu", "philox_check": "philox_check.cu",
-            "ppo_head": "ppo_head.cu"}
+            "ppo_head": "ppo_head.cu", "adam": "adam.cu"}
+# The learning half's libraries: whichever of them loads first builds both,
+# in parallel.
+LEARNING_LIBRARIES = ("ppo_head", "adam")
 
 # -fmad=false: see the note on numerics at the top of the source.
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

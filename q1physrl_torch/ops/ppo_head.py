@@ -55,7 +55,7 @@ import torch
 
 from ..models.distributions import (MAX_ABS_MEAN, MAX_LOG_NN_OUTPUT,
                                     MIN_LOG_NN_OUTPUT, SQUASH_SCALE)
-from .env_rollout import build
+from .env_rollout import LEARNING_LIBRARIES, build_all
 
 __all__ = ("HeadParams", "ppo_head", "ppo_head_plain", "head_backward_plain")
 
@@ -287,7 +287,7 @@ def head_backward_plain(grad_row, grad):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build("ppo_head")))
+    lib = ctypes.CDLL(str(build_all(LEARNING_LIBRARIES)["ppo_head"]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.q1_ppo_head_forward.argtypes = [ptr] * 17 + [i32] * 3 + [ptr, ptr]
     lib.q1_ppo_head_backward.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]

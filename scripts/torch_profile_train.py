@@ -3,7 +3,9 @@
 a card, by the program's own spans.
 
 usage: python scripts/torch_profile_train.py [config.yml] [--epochs N]
-           [--score CHECKPOINT] [--trace-dir DIR]
+           [--score CHECKPOINT] [--trace-dir DIR] [--top K]
+       python scripts/torch_profile_train.py --workload CELL [--seed N]
+           [--seconds S] [--top K]
 
 Training (the default): builds the train state at the config's geometry
 (default ``configs/params_tpu.yml``) and runs a rollout and ``ppo.learn``
@@ -12,6 +14,15 @@ profiler (the spans' host times), and a run whose ``ppo.learn`` is under
 ``utils.profiling.trace`` (CPU and CUDA activity).  With ``--score``, the
 run config's env scores ``CHECKPOINT`` (512 stochastic and 2 deterministic
 zero-start episodes, as the evaluate CLI does) the same three times.
+
+With ``--workload``, a training cell of the benchmark (``train.*`` or
+``sweep.*``, from the root of a checkout): the cell is set up as
+``benchmark.run`` sets it up, its window runs for ``--seconds`` and its
+profiled slice (one rollout and one learning epoch) is read by the
+learning call that the slice's ``bench.learn`` range wraps.  No output
+check runs.  The JSON line then holds the workload, seed, card, torch,
+the slice's ``updates``, ``busy_ms`` and ``window_ms`` and
+``kernels_by_span``.
 
 Prints one JSON line:
 
@@ -26,6 +37,9 @@ Prints one JSON line:
   span (``idle_ms``; ``(no span)`` outside every span);
 - ``unprofiled_ms``: the median host ms of each span name in the run
   without the profiler;
+- ``kernels_by_span`` (training): for each innermost span, the device ms
+  and operations that start in it, each per update, with its ``--top``
+  kernels by device ms (name, ms per update, operations per update);
 - ``kernels_per_update`` (training): the device operations that start
   inside a ``ppo.update`` over the updates, and per phase
   (``ppo.loss``, ``ppo.grad``, ``ppo.adam``, the update's own);
@@ -45,6 +59,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -124,17 +139,49 @@ def _idle_by_span(segments, busy, lo, hi) -> dict:
     return idle
 
 
-def analyse(prof, spans: list) -> dict:
-    """The profiled run by span: host and self ms, kernels, idle ms."""
+def _kernels_by_span(ops, segments, per: int, top: int) -> dict:
+    """Device ms and operations of ``ops`` ((name, start ns, end ns)) by the
+    innermost span at their start, each over ``per``, with the ``top``
+    kernels of each by device ms."""
+    table = collections.defaultdict(lambda: collections.defaultdict(
+        lambda: [0.0, 0]))
+    for name, a, b in ops:
+        row = table[_name_at(segments, a)][name[:100]]
+        row[0] += (b - a) / 1e6
+        row[1] += 1
+    out = {}
+    for where, kernels in sorted(table.items()):
+        ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+        out[where] = {
+            "ms": sum(ms for ms, _ in kernels.values()) / per,
+            "ops": sum(n for _, n in kernels.values()) / per,
+            "top": [[k, ms / per, n / per] for k, (ms, n) in ranked]}
+    return out
+
+
+def _device_ops(prof) -> list:
+    """(name, start ns, end ns) of each device operation of the profiled
+    run, on the spans' clock, by start."""
     from torch.autograd import DeviceType
 
     t0 = prof.profiler.kineto_results.trace_start_ns()
     events = prof.events()
     host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
     absolute = lambda us: t0 + round(us * 1e3)
-    ops = sorted((absolute(e.time_range.start), absolute(e.time_range.end))
-                 for e in events if e.device_type == DeviceType.CUDA
-                 and e.name not in host_names)
+    return sorted((absolute(e.time_range.start), absolute(e.time_range.end),
+                   e.name) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and e.name not in host_names)
+
+
+def analyse(prof, spans: list) -> dict:
+    """The profiled run by span: host and self ms, kernels, idle ms."""
+    from torch.autograd import DeviceType
+
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    events = prof.events()
+    absolute = lambda us: t0 + round(us * 1e3)
+    ops = [(a, b) for a, b, _ in _device_ops(prof)]
     probes = sorted((absolute(e.time_range.start), absolute(e.time_range.end))
                     for e in events if e.name == "clock.probe"
                     and e.device_type != DeviceType.CUDA)
@@ -250,7 +297,11 @@ def _train(args, run, device):
     updates = rows["ppo.update"]["count"]
     keyed = sum(e.count for e in prof.key_averages() if _device_us(e) > 0)
     learn = [e for e in traced if e.name == "ppo.learn"][-1]
+    named = [(name, a, b) for a, b, name in _device_ops(prof)]
+    segments = _innermost([e for e in traced if e.name != "clock.probe"])
     return {**out,
+            "kernels_by_span": _kernels_by_span(named, segments, updates,
+                                                args.top),
             "geometry": {"envs": cfg.num_envs, "frames": cfg.rollout_length,
                          "minibatch": cfg.sgd_minibatch_size,
                          "epochs": cfg.num_sgd_iter, "updates": updates},
@@ -293,6 +344,44 @@ def _score(args, run, device):
                 for e in replays)}
 
 
+def _cell(args) -> dict:
+    """A benchmark training cell's profiled slice by innermost learning
+    span and kernel (``--workload``)."""
+    from benchmark import registry
+    from benchmark import spans as bench_spans
+
+    bench = registry.load_benchmark()
+    cell = registry.workload(bench, args.workload)
+    mix = registry.traffic(cell["traffic"])
+    prefix = {"train": "ppo", "sweep": "population"}.get(mix["kind"])
+    if prefix is None:
+        raise SystemExit(f"{args.workload} is no training cell")
+    # The sweep's host loop prints its log rows: they go to stderr, so
+    # that the JSON line is the only output.
+    with contextlib.redirect_stdout(sys.stderr):
+        job = registry.driver(mix["kind"]).Job(
+            registry.config(bench, cell["config"]), mix, args.seed, "cuda")
+        try:
+            job.window(args.seconds)
+            found = job.profile()
+        finally:
+            job.close()
+    anchored = bench_spans.anchor(found, "bench.learn", f"{prefix}.learn")
+    if anchored is None:
+        raise RuntimeError("the slice's bench.learn range and the program's "
+                           "learning span do not line up")
+    offset, root = anchored
+    learning = [e for e in profiling.events()
+                if e.profiled and e.root == root.id]
+    updates = sum(e.name == f"{prefix}.update" for e in learning)
+    ops = [(name, round(a * 1e3) - offset, round(b * 1e3) - offset)
+           for name, a, b in found.ops]
+    return {"workload": args.workload, "seed": args.seed, "updates": updates,
+            "busy_ms": found.busy_s * 1e3, "window_ms": found.window_s * 1e3,
+            "kernels_by_span": _kernels_by_span(ops, _innermost(learning),
+                                                updates, args.top)}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("config", nargs="?",
@@ -300,19 +389,28 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=1)
     parser.add_argument("--score", metavar="CHECKPOINT")
     parser.add_argument("--trace-dir", default=None)
+    parser.add_argument("--top", type=int, default=12)
+    parser.add_argument("--workload", metavar="CELL")
+    parser.add_argument("--seed", type=int, default=1)
+    parser.add_argument("--seconds", type=float, default=10.0)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--id=0",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    if args.workload:
+        out = _cell(args)
+        print(json.dumps({"device": smi, "torch": torch.__version__, **out}),
+              flush=True)
+        return
     args.trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="q1trace-")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     run = load_run_config(args.config)
     out = (_score if args.score else _train)(args, run,
                                              torch.device("cuda", 0))
-    smi = subprocess.run(["nvidia-smi", "--id=0",
-                          "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
     counters = profiling.counters()
     print(json.dumps({
         "config": str(Path(args.config).resolve().relative_to(ROOT)),

@@ -277,3 +277,32 @@ def test_the_profile_script_tables_a_learning_half_by_span(tmp_path):
     assert len(out["clock"]) == 2
     assert all(c["start_after_span_us"] > 0 and c["end_before_span_us"] > 0
                for c in out["clock"])
+
+
+def test_the_profile_script_gives_each_kernel_to_its_innermost_span():
+    """``scripts/torch_profile_train.py``'s ``kernels_by_span``: each device
+    operation goes to the innermost span open at its start (none before
+    the first or after the last), its device ms and count over the
+    updates, the top kernels by device ms."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_train", ROOT / "scripts" / "torch_profile_train.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    span = types.SimpleNamespace
+    spans = [span(name="ppo.learn", id=1, start_ns=0, end_ns=100),
+             span(name="ppo.update", id=2, start_ns=10, end_ns=50),
+             span(name="ppo.adam", id=3, start_ns=40, end_ns=45)]
+    ops = [("a", -5, 0), ("b", 5, 7), ("c", 12, 20), ("d", 41, 44),
+           ("e", 46, 49), ("c", 30, 34), ("f", 120, 130)]
+    out = script._kernels_by_span(ops, script._innermost(spans), 2, 1)
+    assert sorted(out) == [script.OUTSIDE, "ppo.adam", "ppo.learn",
+                           "ppo.update"]
+    update = out["ppo.update"]
+    assert update["ops"] == 1.5 and update["ms"] == pytest.approx(7.5e-6)
+    assert update["top"] == [["c", pytest.approx(6e-6), 1.0]]
+    assert out["ppo.adam"]["top"] == [["d", pytest.approx(1.5e-6), 0.5]]
+    assert out[script.OUTSIDE]["ops"] == 1.0
+    assert out["ppo.learn"]["top"][0][0] == "b"

@@ -27,7 +27,14 @@ Phases, each printing one JSON line:
                rollout_actions_autoreset at the training shape (N=8,192,
                T=1), each of these also in the form the frame loops launch
                (``out=``: the state written over itself into given
-               buffers); rollout_random at N=65,536, T=128 and
+               buffers), and its decoded form, which the PPO rollout
+               launches, at the training shape (N=8,192) and the
+               population shape (4 x 400) and on a K=3 probe (state,
+               every record field, the statistics' terms and the next
+               observation to the bit), timed with its bytes, beside each
+               rollout frame's kernels on the fused and the composed path
+               (``rollout_frame``: both rollouts held equal to the bit);
+               rollout_random at N=65,536, T=128 and
                the bench shape (N=2^20, T=720), and also at an odd T
                (N=4,096, T=67), and each kernel on run4 from a state whose
                key latches hold any int32 (ANY_LATCHES).  rollout_random's
@@ -116,7 +123,9 @@ Phases, each printing one JSON line:
                ``ppo.rollout``, graphed twice (the capture's run, then a
                replay of every frame on the kept loop) and eager on the
                card: trajectory, state, statistics, bootstrap value and
-               generator to the bit.
+               generator to the bit.  Phases 5 and 5a count the rollout
+               frames by path: every one fused
+               (``rollout_frames_by_path``).
 5a. sweep    — round 5's gated cohort (``configs/sweep_r5_repl2.yml``: 4
                members of 400 envs x 125 frames, minibatch 128, 30 epochs,
                full-width towers): rollout_actions_autoreset at the
@@ -286,6 +295,13 @@ ACTIONS_SHAPES = {"scoring": (512, 1, 1000, 100),
                   "throughput": (65536, 128, 20, 2)}
 AUTORESET_SHAPES = {"training": (8192, 1, 1000, 100),
                     "population": (1600, 1, 1000, 100)}
+# rollout_actions_autoreset's decoded form: (envs, members, reps, plain
+# reps) at the training and the population shape.
+AUTORESET_SAMPLED_SHAPES = {"training": (8192, 1, 1000, 100),
+                            "population": (1600, 4, 1000, 100)}
+# The rollout frame on each path: frames of a rollout at params_tpu.yml's
+# geometry (8,192 envs, K=4) and of round 5's population (4 x 400).
+ROLLOUT_FRAME_FRAMES = 32
 RANDOM_SHAPES = {"throughput": (65536, 128, 20, 2),
                  "bench": (1 << 20, 720, 5, 1)}
 ZERO_START_RESETS = 1 << 20
@@ -434,6 +450,55 @@ def sampled_frame_inputs(cfg, n, seed, device, near_end=0.5):
     return (state, f32(logits), f32(uniforms), f32(rng.normal(size=n)),
             f32(rng.normal(0.0, 100.0, n)),
             torch.tensor(rng.random(n) < 0.8, device=device))
+
+
+def autoreset_frame_inputs(cfg, n, members, rows, seed, device):
+    """What the decoded form of ``rollout_actions_autoreset``
+    (``rollout_autoreset_sampled``) reads and writes, numpy-seeded: a start
+    state from :func:`rollout_inputs` (episodes ending within the frame),
+    then ``inputs``: logits (N, 2K + 2) with ties among the key logits and
+    yaw means and log stds past their clamps (no NaN: a NaN log-probability
+    compares by its bits), the value, each member's key uniforms (P, K,
+    N / P, 2) with some exact zeros, yaw normals, reset uniforms (P, 5,
+    N / P), the observation of the state, live returns and lengths; and
+    ``outputs``: zeroed statistics terms, a zeroed record of ``rows``
+    frames and the index of its next-to-last row.  Returns (state, inputs,
+    outputs)."""
+    import torch
+
+    from q1physrl_torch.env import core
+    from q1physrl_torch.ops import env_rollout
+
+    rng = np.random.default_rng(seed)
+    state, _, _ = rollout_inputs(cfg, n, 1, seed, device, near_end=0.5)
+    k, per = cfg.num_keys, n // members
+    logits = rng.normal(0.0, 2.0, (n, 2 * k + 2))
+    logits[:, 2 * k] = rng.normal(0.0, 4.0, n)
+    logits[:, 2 * k + 1] = rng.uniform(-25.0, 4.0, n)
+    tie = rng.random(n) < 0.1
+    logits[tie, 1] = logits[tie, 0]
+    uniforms = rng.random((members, k, per, 2))
+    uniforms[rng.random(uniforms.shape) < 0.01] = 0.0
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    inputs = dict(
+        logits=f32(logits), value=f32(rng.normal(size=n)),
+        uniforms=f32(uniforms), normals=f32(rng.normal(size=n)),
+        reset_uniforms=f32(rng.random((members, 5, per))),
+        obs=core.compute_obs(cfg, state.player, state.yaw,
+                             state.time_remaining),
+        ep_return=f32(rng.normal(0.0, 100.0, n)),
+        ep_len=torch.tensor(rng.integers(0, 500, n), dtype=torch.int32,
+                            device=device))
+    outputs = dict(
+        terms=tuple(torch.zeros(n, device=device)
+                    for _ in env_rollout.EPISODE_TERMS),
+        record=tuple(torch.zeros((rows,) + shape,
+                                 dtype=env_rollout.record_dtype(name),
+                                 device=device)
+                     for name, shape in
+                     env_rollout.record_shapes(cfg, n).items()),
+        index=torch.tensor([rows - 2], dtype=torch.int64, device=device))
+    return state, inputs, outputs
 
 
 def _at_ratio(logp, behaviour_logp, target):
@@ -1177,6 +1242,16 @@ def _phase_adam(device):
     return timings, max_err
 
 
+def _rollout_frame_counters(since=None):
+    """The PPO rollout's frames by path (counters ``ppo.fused_frames`` and
+    ``ppo.composed_frames``), since ``since`` where given."""
+    from q1physrl_torch.utils import profiling
+
+    now = {k: profiling.counter(k) for k in ("ppo.fused_frames",
+                                             "ppo.composed_frames")}
+    return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+
 def _adam_counters(since=None):
     """The counters of Adam's steps by call site and path, less ``since``'s."""
     from q1physrl_torch.utils import profiling
@@ -1237,6 +1312,189 @@ def _phase_autoreset(run, device):
                "kernel": "rollout_actions_autoreset", "shape": shape,
                **timings[shape]})
     return timings, max_err
+
+
+def _compare_rollout_frame(name, got, want, row):
+    """rollout_actions_autoreset's decoded form: its (state, record,
+    ep_return, ep_len, terms, obs) against the plain version's (state,
+    record row, ep_return, ep_len, terms, next obs): the state as in
+    :func:`_compare`, the record's row ``row`` and everything else to the
+    bit (-0.0 apart from 0.0).  Returns the largest float difference
+    (0.0)."""
+    import torch
+
+    from q1physrl_torch.ops.env_rollout import EPISODE_TERMS, RECORD_FIELDS
+
+    (s, record, ret, length, terms, obs), (s0, row0, ret0, len0, terms0,
+                                          obs0) = got, want
+    bits = lambda x: (x.view(torch.int32) if x.dtype == torch.float32
+                      else x)
+    pairs = ([(f"record {f}", r[row], x)
+              for f, r, x in zip(RECORD_FIELDS, record, row0)]
+             + [("ep_return", ret, ret0), ("ep_len", length, len0),
+                ("obs", obs, obs0)]
+             + list(zip(EPISODE_TERMS, terms, terms0)))
+    for what, x, y in pairs:
+        if not torch.equal(bits(x), bits(y)):
+            raise AssertionError(f"{name}: {what} not bitwise equal to the "
+                                 f"plain version")
+    return _bitwise(name, _compare_state(name, s, s0))
+
+
+def _bound_rollout_frame(state, inputs, outputs):
+    """Least time (ms) of one launch of rollout_actions_autoreset's decoded
+    form: the state read and written, the towers' outputs, the draws, the
+    observation and the live episodes read, the record's row, the live
+    episodes, the statistics' terms and the next observation written (the
+    index read once).  Its operations are the env step's alone."""
+    record_row = sum(x[0].numel() * x.element_size()
+                     for x in outputs["record"])
+    nbytes = (2 * _nbytes(state.leaves()) + _nbytes(inputs.values())
+              + _nbytes((inputs["obs"], inputs["ep_return"],
+                         inputs["ep_len"]))
+              + _nbytes(outputs["terms"]) + record_row + 8)
+    return _least_time(nbytes, OPS_PER_ENV_STEP * state.num_envs)
+
+
+@contextlib.contextmanager
+def _rollout_path(fused):
+    """The PPO rollout's choice of frame forced to ``fused``."""
+    from q1physrl_torch.algo import ppo
+
+    chosen = ppo._takes_fused_rollout
+    ppo._takes_fused_rollout = lambda *args: fused
+    try:
+        yield
+    finally:
+        ppo._takes_fused_rollout = chosen
+
+
+def _rollout_frame_paths(device):
+    """The PPO rollout on each path, graphed, for ROLLOUT_FRAME_FRAMES
+    frames at params_tpu.yml's geometry (8,192 envs, K=4) and at round 5's
+    population shape (4 x 400 envs of run4) from one start: the fused frame
+    (the loops' choice on the card) against the composed one (forced), to
+    the bit (trajectory, state, statistics, bootstrap value, generators),
+    the frames counted on their path, and each path's frame: ``frame_ms``,
+    ``kernels_per_frame``, ``frame_busy_ms`` (:func:`_frame_profile`)."""
+    import torch
+
+    from q1physrl_torch.algo import population, ppo
+    from q1physrl_torch.algo.config import load_run_config
+    from q1physrl_torch.utils import profiling
+
+    params = load_run_config(str(PARAMS_YAML))
+    run4 = load_run_config(str(RUN_YAML))
+    frames = ROLLOUT_FRAME_FRAMES
+    shapes = {
+        "training": (dataclasses.replace(params.env, num_envs=None),
+                     dataclasses.replace(params.ppo, rollout_length=frames),
+                     None),
+        "population": (dataclasses.replace(run4.env, num_envs=None),
+                       dataclasses.replace(run4.ppo, num_envs=400,
+                                           rollout_length=frames),
+                       (5555, 6666, 7777, 8888))}
+    counted = lambda: {k: profiling.counter(k) for k in
+                       ("ppo.fused_frames", "ppo.composed_frames")}
+    out = {}
+    for shape, (cfg, pc, seeds) in shapes.items():
+        runs, out[shape] = {}, {"frames": frames}
+        for path, fused in (("fused", True), ("composed", False)):
+            with _rollout_path(fused):
+                before = counted()
+                if seeds is None:
+                    ts = ppo.init_train_state(params.seed, cfg, pc, device)
+                    result = ppo.rollout(cfg, pc, ts.policy, ts.env_state,
+                                         ts.stats, ts.generator)
+                    gens = [ts.generator.get_state()]
+                    loop = next(reversed(ppo._LOOPS.loops.values()))
+                else:
+                    ps = population.init_population(seeds, cfg, pc, device)
+                    result = population.rollout(cfg, pc, ps.policy,
+                                                ps.env_state, ps.stats,
+                                                ps.generators)
+                    gens = [g.get_state() for g in ps.generators]
+                    loop = next(reversed(population._LOOPS.loops.values()))
+                after = counted()
+            runs[path] = result + (gens,)
+            moved = {k: after[k] - before[k] for k in after}
+            if moved != {f"ppo.{path}_frames": frames,
+                         f"ppo.{'composed' if fused else 'fused'}_frames": 0}:
+                raise AssertionError(f"rollout frame, {shape}: counted "
+                                     f"{moved} on the {path} path")
+            if loop.fused != fused:
+                raise AssertionError(f"rollout frame, {shape}: the kept "
+                                     f"loop is not the {path} one")
+            out[shape][path] = _frame_profile(loop, frames)
+        (s, st, tr, b, g), (s0, st0, tr0, b0, g0) = (runs["fused"],
+                                                     runs["composed"])
+        same = (all(torch.equal(x, y) for x, y in zip(s.leaves(),
+                                                      s0.leaves()))
+                and all(torch.equal(getattr(st, f.name), getattr(st0, f.name))
+                        for f in dataclasses.fields(st0))
+                and all(torch.equal(x, y) for x, y in zip(tr, tr0))
+                and torch.equal(b, b0)
+                and all(torch.equal(x, y) for x, y in zip(g, g0)))
+        if not same:
+            raise AssertionError(f"rollout frame, {shape}: the fused "
+                                 f"rollout differs from the composed one")
+        out[shape].update(fused_equals_composed_bitwise=True,
+                          dones=int(tr0.done.sum()))
+    return out
+
+
+def _phase_autoreset_sampled(run, device):
+    """rollout_actions_autoreset's decoded form
+    (``rollout_autoreset_sampled``), the kernel the PPO rollout launches:
+    on a K=3 probe and a state with key latches of any value, then at the
+    training and the population shape on
+    :func:`autoreset_frame_inputs`, the kernel in place against its plain
+    version to the bit, timed beside its bound; then the rollout frame on
+    each path (:func:`_rollout_frame_paths`).  Returns ({shape: timing},
+    the largest difference, the rollout frames)."""
+    import torch
+
+    from q1physrl_torch.ops.env_rollout import (
+        rollout_autoreset_sampled, rollout_autoreset_sampled_plain)
+
+    cfg = dataclasses.replace(run.env, zero_start_prob=0.3)
+    rows = 4
+    cases = {"k3 probe": (dataclasses.replace(cfg, allow_jump=False), 1000,
+                          1, None),
+             "run4 any latches": (cfg, 1000, 2, 42),
+             **{shape: (cfg, n, members, None) for shape, (n, members, _, _)
+                in AUTORESET_SAMPLED_SHAPES.items()}}
+    timings, max_err = {}, 0.0
+    for seed, (name, (c, n, members, latches)) in enumerate(cases.items(),
+                                                            300):
+        state, inputs, outputs = autoreset_frame_inputs(c, n, members, rows,
+                                                        seed, device)
+        if latches is not None:
+            state = any_latches(state, latches)
+        fresh = {k: v.clone() for k, v in inputs.items()}
+        want = rollout_autoreset_sampled_plain(c, state.clone(), **fresh)
+        mine = (state.clone(), {k: v.clone() for k, v in inputs.items()})
+        err = _compare_rollout_frame(
+            name, rollout_autoreset_sampled(c, mine[0], **mine[1], **outputs),
+            want, rows - 2)
+        max_err = max(max_err, err)
+        entry = {"n": n, "members": members, "t": 1, "max_abs_err": err,
+                 "dones": int(want[1][7].sum())}
+        if name in AUTORESET_SAMPLED_SHAPES:
+            _, _, reps, plain_reps = AUTORESET_SAMPLED_SHAPES[name]
+            kernel = lambda: rollout_autoreset_sampled(c, mine[0], **mine[1],
+                                                       **outputs)
+            plain = lambda: rollout_autoreset_sampled_plain(
+                c, state, **fresh)
+            entry.update(**_timed(kernel, plain, reps, plain_reps),
+                         **_bound_rollout_frame(state, inputs, outputs))
+            timings[name] = entry
+        _emit({"phase": "kernel_timing" if name in timings else "kernel",
+               "kernel": "rollout_actions_autoreset", "form": "decoded",
+               "shape": name, **entry})
+    frames = _rollout_frame_paths(device)
+    _emit({"phase": "rollout_frame", **frames})
+    return timings, max_err, frames
 
 
 def _phase_random(run, device):
@@ -3006,6 +3264,8 @@ def main(device=None) -> int:
     actions_t, actions_err = _phase_rollout_actions(run, device)
     decoded_t, decoded_err = _phase_rollout_actions_sampled(run, device)
     autoreset_t, autoreset_err = _phase_autoreset(run, device)
+    decoded_autoreset_t, decoded_autoreset_err, rollout_frames = (
+        _phase_autoreset_sampled(run, device))
     random_t, random_err = _phase_random(run, device)
     head_t, head_err = _phase_ppo_head(device)
     adam_t, adam_err = _phase_adam(device)
@@ -3049,6 +3309,7 @@ def main(device=None) -> int:
     # 5. training through the Trainer; 5a. a population through the sweep
     ppo_head.launches = adam.launches = 0
     before = _adam_counters()
+    frames_before = _rollout_frame_counters()
     training = _phase_training(device, card)
     head_launches = {"training": ppo_head.launches}
     adam_launches = {"training": adam.launches}
@@ -3058,6 +3319,12 @@ def main(device=None) -> int:
     head_launches["sweep"] = ppo_head.launches - head_launches["training"]
     adam_launches["sweep"] = adam.launches - adam_launches["training"]
     adam_steps["sweep"] = _adam_counters(before)
+    rollout_frames_by_path = _rollout_frame_counters(frames_before)
+    _emit({"phase": "rollout_frames_by_path", **rollout_frames_by_path})
+    if rollout_frames_by_path["ppo.composed_frames"]:
+        raise RuntimeError(f"training and sweep: rollout frames by path "
+                           f"{rollout_frames_by_path}; every frame fused "
+                           f"expected")
     for name, counted in adam_steps.items():
         composed = {k: v for k, v in counted.items() if "composed" in k}
         if any(composed.values()) or adam_launches[name] != sum(
@@ -3113,15 +3380,27 @@ def main(device=None) -> int:
     # its CUDA graph: its time on the card and the capture's seconds.
     actions_entry.update(frame_ms=scoring_loops["frame_ms"],
                          capture_s=scoring_loops["capture_s"])
+    # #2's main path, the PPO rollout, launches its decoded form on a card:
+    # the entry's time, bound and error are the decoded form's at the
+    # training shape.
     autoreset_entry = entry("rollout_actions_autoreset", 248,
-                            training["launches"], autoreset_t["training"],
-                            autoreset_err, autoreset_t)
+                            training["launches"],
+                            decoded_autoreset_t["training"],
+                            max(autoreset_err, decoded_autoreset_err),
+                            {**autoreset_t,
+                             **{f"{k}_decoded": v for k, v in
+                                decoded_autoreset_t.items()}})
     autoreset_entry.update(
+        form="decoded",
         frame_ms=training["rollout_loops"]["frame_ms"],
         capture_s=training["rollout_loops"]["capture_s"],
         launches_by_path={"training": training["launches"],
                           "sweep": sweep["launches"]},
-        population_frame_ms=sweep["rollout"]["frame_ms"])
+        population_frame_ms=sweep["rollout"]["frame_ms"],
+        kernels_per_frame_by_path={
+            shape: {path: frames[path]["kernels_per_frame"]
+                    for path in ("fused", "composed")}
+            for shape, frames in rollout_frames.items()})
     # The PPO loss head replaces no TPU kernel: its time and bound are one
     # forward and one backward launch at params_tpu's shape.
     head_entry = entry("ppo_head", None, sum(head_launches.values()),

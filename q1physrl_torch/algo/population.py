@@ -6,7 +6,8 @@ compiled program.  Here the P members share each launch instead:
 - the env state holds the members' P * N envs, member-major (member i's
   envs are rows ``[i * N, (i + 1) * N)`` of every leaf's env axis), so a
   rollout frame is one stacked policy forward (``models.StackedPolicy``)
-  and one launch of ``rollout_actions_autoreset`` on all P * N envs;
+  and one launch of ``rollout_actions_autoreset`` on all P * N envs (on a
+  card, of its decoded form, as ``ppo.RolloutLoop``'s fused frame);
 - the learning half takes every member's minibatch together: one forward
   and backward of the stacked towers per minibatch, whose loss is the sum
   over members of each member's mean loss (so member gradients stay
@@ -168,16 +169,19 @@ class PopulationRolloutLoop(ppo_mod.RolloutLoop):
     """``ppo.RolloutLoop`` over P members' P * N envs with the stacked
     policy and all P generators (each registered with the frame's CUDA
     graph): per frame one stacked forward, each member's key, yaw and
-    reset draws from its own generator, and one launch of
-    ``rollout_actions_autoreset`` on all P * N envs (with ``out=``)."""
+    reset draws from its own generator, and one launch on all P * N envs:
+    of ``rollout_actions_autoreset`` (with ``out=``) in the composed frame,
+    of its decoded form in the fused one (``fused``), which reads each
+    member's draws from its own block."""
 
     def __init__(self, env_cfg: EnvConfig, ppo: PPOConfig,
-                 policy: StackedPolicy, generators: tuple, device):
+                 policy: StackedPolicy, generators: tuple, device,
+                 fused: bool = False):
         if len(generators) != policy.members:
             raise ValueError(f"{len(generators)} generators for "
                              f"{policy.members} members")
         super().__init__(env_cfg, ppo, policy, tuple(generators),
-                         policy.members * ppo.num_envs, device)
+                         policy.members * ppo.num_envs, device, fused=fused)
         self.env_step = rollout_actions_autoreset  # one device, no group
 
 
@@ -189,10 +193,11 @@ def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: StackedPolicy,
     in ``_LOOPS`` by what its capture is bound to.  Returns (env_state',
     stats', trajectory (T, P * N, ...), bootstrap_value (P * N,))."""
     device = env_state.yaw.device
-    key = (env_cfg, ppo, env_state.num_envs, device, id(policy),
+    fused = ppo_mod._takes_fused_rollout(policy, env_cfg, None, device)
+    key = (env_cfg, ppo, env_state.num_envs, device, fused, id(policy),
            param_addresses(policy), ppo_mod.generator_ids(tuple(generators)))
     loop = _LOOPS.get(key, lambda: PopulationRolloutLoop(
-        env_cfg, ppo, policy, tuple(generators), device))
+        env_cfg, ppo, policy, tuple(generators), device, fused))
     return loop.rollout(env_state, stats, driver)
 
 

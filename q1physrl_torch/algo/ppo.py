@@ -4,7 +4,10 @@ One iteration (:func:`train_iter`) is
 
     rollout (a loop over T frames: the policy, then one launch of the
              auto-reset env kernel, ops.env_rollout.rollout_actions_autoreset;
-             on a card the frame is a CUDA graph replayed T times)
+             on a card the towers, the draws and one launch of that
+             kernel's decoded form, which samples, scores, steps, records
+             and writes the next observation; the frame a CUDA graph
+             replayed T times)
     -> GAE(lambda), a reverse loop over T
     -> advantage standardization over the whole batch
     -> num_sgd_iter epochs x minibatched Adam steps
@@ -46,6 +49,15 @@ Episode metrics (episode_reward_mean/max, episode_len_mean, and the
 north-star zero_start_total_reward_mean) are accumulated on the device in
 :class:`EpisodeStats`.
 
+The rollout's frame is fused or composed (:func:`_takes_fused_rollout`,
+chosen from what the loop observes): on a card, unsharded and outside a
+process group, for a policy with K Categorical(2) keys and a continuous
+yaw, the frame after the towers is one launch of
+``ops.env_rollout.rollout_autoreset_sampled``; everything else composes it
+of torch operations and ``rollout_actions_autoreset``.  Both give the same
+bits; the counters ``ppo.fused_frames`` and ``ppo.composed_frames`` count
+the frames of each.
+
 The policy's parameters and the Adam moments are updated in place;
 :func:`learn` returns a new :class:`TrainState` that holds the same policy.
 
@@ -70,9 +82,12 @@ import torch
 from ..env import core as env_core
 from ..env.config import Config as EnvConfig
 from ..models.distributions import draw
-from ..models.policy import Policy, action_dist
+from ..models.policy import Policy, StackedPolicy, action_dist
 from ..ops import adam as adam_ops
-from ..ops.env_rollout import rollout_actions_autoreset
+from ..ops.env_rollout import (EPISODE_TERMS, RECORD_FIELDS,
+                               record_dtype, record_shapes,
+                               rollout_actions_autoreset,
+                               rollout_autoreset_sampled)
 from ..ops.ppo_head import HeadParams, ppo_head
 from ..ops.sharded_rollout import sharded_rollout_actions_autoreset
 from ..parallel import distributed
@@ -141,24 +156,33 @@ class EpisodeStats:
         ep_len = self.ep_len + 1
         d = done.to(torch.float32)
         zs = d * zero_start.to(torch.float32)
+        terms = (d, torch.where(done, ep_return, 0.0),
+                 torch.where(done, ep_return, -torch.inf), d * ep_len, zs,
+                 zs * ep_return)
+        return EpisodeStats(ep_return=torch.where(done, 0.0, ep_return),
+                            ep_len=torch.where(done, 0, ep_len),
+                            **self.accumulated(terms))
+
+    def accumulated(self, terms, out: Optional["EpisodeStats"] = None):
+        """The finished-episode scalars after a frame whose per-env terms
+        are ``terms``, one (N,) tensor per scalar in the order of
+        ``ops.env_rollout.EPISODE_TERMS``: each scalar plus the sum of its
+        term (``ret_max``: the larger of it and its term's max), by member
+        for a population's.  ``out``: stats to write them into.  Returns
+        {name: scalar}."""
         if self.finished.dim():  # a population's: sums per member
             members = self.finished.shape[0]
             total = lambda x: x.view(members, -1).sum(-1)
             top = lambda x: x.view(members, -1).amax(-1)
         else:
             total, top = torch.sum, torch.max
-        return EpisodeStats(
-            ep_return=torch.where(done, 0.0, ep_return),
-            ep_len=torch.where(done, 0, ep_len),
-            finished=self.finished + total(d),
-            ret_sum=self.ret_sum + total(torch.where(done, ep_return, 0.0)),
-            ret_max=torch.maximum(
-                self.ret_max,
-                top(torch.where(done, ep_return, -torch.inf))),
-            len_sum=self.len_sum + total(d * ep_len),
-            zs_finished=self.zs_finished + total(zs),
-            zs_ret_sum=self.zs_ret_sum + total(zs * ep_return),
-        )
+        result = {}
+        for name, x in zip(EPISODE_TERMS, terms):
+            op, reduce = ((torch.maximum, top) if name == "ret_max"
+                          else (torch.add, total))
+            result[name] = op(getattr(self, name), reduce(x),
+                              out=None if out is None else getattr(out, name))
+        return result
 
 
 @dataclasses.dataclass
@@ -278,6 +302,19 @@ def init_train_state(seed: int, env_cfg: EnvConfig, ppo: PPOConfig,
 _LOOPS = LoopCache(4)
 
 
+def _takes_fused_rollout(policy, env_cfg: EnvConfig, shard, device) -> bool:
+    """Whether the rollout runs the fused frame: on a card, with no env
+    shard and no process group, for a float32 ``Policy`` or
+    ``StackedPolicy`` whose action space is K Categorical(2) keys and a
+    continuous yaw.  Everything else (the CPU, the sharded, global and
+    spmd layouts, a discrete or absent yaw) runs the composed frame."""
+    return (torch.device(device).type == "cuda" and shard is None
+            and not distributed.is_initialized()
+            and isinstance(policy, (Policy, StackedPolicy))
+            and all(p.dtype == torch.float32 for p in policy.parameters())
+            and env_cfg.allow_yaw and env_cfg.discrete_yaw_steps == -1)
+
+
 class RolloutLoop(FrameLoop):
     """:func:`rollout`'s frames on static buffers: the env state, the
     episode statistics, and the (T, ...) trajectory, written at a
@@ -290,26 +327,60 @@ class RolloutLoop(FrameLoop):
     in ``_LOOPS``, so the iterations of a run reuse one capture.  A tuple
     of P generators with a ``StackedPolicy`` runs a population's envs
     (``algo/population.py``): member i's draws come from generator i.
+
+    ``fused`` (:func:`_takes_fused_rollout`) picks the frame.  The composed
+    frame builds the observation, samples ``ActionDist``, scores the
+    log-probability, draws the reset uniforms, steps with
+    ``rollout_actions_autoreset`` (``sharded_rollout_actions_autoreset`` in
+    a process group), updates the statistics and records the row.  The
+    fused frame runs the towers on the observation buffer, draws what the
+    composed frame draws, in each generator's order and at the same shapes,
+    into static buffers (a member's blocks from its own generator), and
+    makes one launch of ``rollout_autoreset_sampled``, which does the rest
+    but the statistics' sums, torch reductions over its per-env terms.
+    Both give the same bits.
     """
 
     def __init__(self, env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
-                 generator, n: int, device, shard=None):
+                 generator, n: int, device, shard=None, fused: bool = False):
         generators = generator if isinstance(generator, tuple) else (
             generator,)
         super().__init__(device, generators,
                          (rollout_actions_autoreset,
+                          rollout_autoreset_sampled,
                           sharded_rollout_actions_autoreset))
         self.env_cfg, self.ppo, self.policy = env_cfg, ppo, policy
         self.generator, self.n, self.shard = generator, n, shard
+        self.fused = fused
         self.env_step = (sharded_rollout_actions_autoreset
                          if distributed.is_initialized()
                          else rollout_actions_autoreset)
         self.state = self.stats = None
         self.traj = {}
-        self.rewards = torch.empty((1, n), dtype=torch.float32, device=device)
-        self.dones = torch.empty((1, n), dtype=torch.bool, device=device)
-        self.zero_start = torch.empty(n, dtype=torch.bool, device=device)
         self.idx = torch.zeros(1, dtype=torch.int64, device=device)
+        if fused:
+            self._fused_buffers()
+        else:
+            self.rewards = torch.empty((1, n), dtype=torch.float32,
+                                       device=device)
+            self.dones = torch.empty((1, n), dtype=torch.bool, device=device)
+            self.zero_start = torch.empty(n, dtype=torch.bool, device=device)
+
+    def _fused_buffers(self):
+        """The fused frame's static buffers: the observation, the draws,
+        the per-env statistics terms and the whole (T, ...) record."""
+        cfg, n, device = self.env_cfg, self.n, self.device
+        members = len(self.generators)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.obs = torch.empty((n, 6), **f32)
+        self.uniforms = torch.empty((members, cfg.num_keys, n // members, 2),
+                                    **f32)
+        self.normals = torch.empty(n, **f32)
+        self.reset_uniforms = torch.empty((members, 5, n // members), **f32)
+        self.terms = tuple(torch.empty(n, **f32) for _ in EPISODE_TERMS)
+        self.traj = {k: torch.empty((self.ppo.rollout_length,) + shape,
+                                    dtype=record_dtype(k), device=device)
+                     for k, shape in record_shapes(cfg, n).items()}
 
     def _record(self, values):
         for k, v in zip(Trajectory._fields, values):
@@ -320,6 +391,13 @@ class RolloutLoop(FrameLoop):
             self.traj[k].index_copy_(0, self.idx, v.unsqueeze(0))
 
     def frame(self):
+        if self.fused:
+            self._fused_frame()
+        else:
+            self._composed_frame()
+        self.idx += 1
+
+    def _composed_frame(self):
         cfg, state, n = self.env_cfg, self.state, self.n
         obs = env_core.compute_obs(cfg, state.player, state.yaw,
                                    state.time_remaining).to(torch.float32)
@@ -336,13 +414,30 @@ class RolloutLoop(FrameLoop):
                                            self.zero_start))
         self._record((obs, ka, ya, logits, logp, value, self.rewards[0],
                       self.dones[0], ru))
-        self.idx += 1
+
+    def _fused_frame(self):
+        logits, value = self.policy(self.obs)
+        per = self.n // len(self.generators)
+        for m, g in enumerate(self.generators):
+            for u in self.uniforms[m]:
+                torch.rand(u.shape, generator=g, out=u)
+            torch.randn((per,), generator=g,
+                        out=self.normals[m * per:(m + 1) * per])
+            torch.rand((5, per), generator=g, out=self.reset_uniforms[m])
+        stats = self.stats
+        rollout_autoreset_sampled(
+            self.env_cfg, self.state, logits, value, self.uniforms,
+            self.normals, self.reset_uniforms, self.obs, stats.ep_return,
+            stats.ep_len, self.terms,
+            tuple(self.traj[k] for k in RECORD_FIELDS), self.idx)
+        stats.accumulated(self.terms, out=stats)
 
     def rollout(self, env_state: env_core.EnvState, stats: EpisodeStats,
                 driver=None):
         """:func:`rollout` from ``env_state`` and ``stats`` with this
         loop's policy and generator; ``driver`` as in :func:`rollout`."""
         driver = resolve_driver(driver, self.device)
+        frames = self.ppo.rollout_length
         with torch.no_grad():
             if self.state is None:
                 self.state, self.stats = env_state.clone(), stats.clone()
@@ -350,11 +445,17 @@ class RolloutLoop(FrameLoop):
                 self.state.copy_(env_state)
                 self.stats.copy_(stats)
             self.idx.zero_()
-            self.run(self.ppo.rollout_length, driver)
+            state = self.state
+            if self.fused:
+                self.obs.copy_(env_core.compute_obs(
+                    self.env_cfg, state.player, state.yaw,
+                    state.time_remaining))
+            self.run(frames, driver)
+            count("ppo.fused_frames" if self.fused else "ppo.composed_frames",
+                  frames)
             # Bootstrap value of the state after the last frame (re-drawn
             # envs bootstrap their fresh episode; done-masking in GAE
             # handles the seam).
-            state = self.state
             final_obs = env_core.compute_obs(
                 self.env_cfg, state.player, state.yaw,
                 state.time_remaining).to(torch.float32)
@@ -374,7 +475,10 @@ def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     ``rollout_actions_autoreset`` (one kernel launch on the card; in a
     process group, ``sharded_rollout_actions_autoreset`` on the rank's
     envs).  With an env ``shard`` the draws are made for the whole batch
-    and cut to the shard's envs.
+    and cut to the shard's envs.  Where :func:`_takes_fused_rollout` holds
+    (a card, no shard, no process group, a continuous yaw), the frame after
+    the towers and the draws is one launch of that kernel's decoded form
+    (:class:`RolloutLoop`), with the same bits.
 
     ``driver``: ``"graph"`` (the default on a card) captures the frame as a
     CUDA graph and replays it once per frame, ``"eager"`` (the CPU's) calls
@@ -386,10 +490,13 @@ def rollout(env_cfg: EnvConfig, ppo: PPOConfig, policy: Policy,
     Returns (env_state', stats', trajectory, bootstrap_value).
     """
     n, device = env_state.num_envs, env_state.yaw.device
+    fused = _takes_fused_rollout(policy, env_cfg, shard, device)
     key = (env_cfg, ppo, n, shard, device, distributed.is_initialized(),
-           id(policy), param_addresses(policy), generator_ids(generator))
+           fused, id(policy), param_addresses(policy),
+           generator_ids(generator))
     loop = _LOOPS.get(key, lambda: RolloutLoop(env_cfg, ppo, policy,
-                                               generator, n, device, shard))
+                                               generator, n, device, shard,
+                                               fused))
     return loop.rollout(env_state, stats, driver)
 
 

@@ -19,8 +19,16 @@
 // - rollout_autoreset_kernel replaces rollout_actions_autoreset: the same
 //   frames, and every env whose episode ended is re-drawn from streamed
 //   uniforms, exactly a loop of env/core.py:step_autoreset(reset_uniforms=
-//   ru[t]).  Its T=1 form is the env step of the PPO rollout.  Plain
-//   version: env_rollout.py:rollout_actions_autoreset_plain.
+//   ru[t]).  Its T=1 form is the env step of the PPO rollout's composed
+//   frame.  Plain version: env_rollout.py:rollout_actions_autoreset_plain.
+//   Its decoded form, rollout_autoreset_kernel<K, Decode::kSample> (a
+//   second template of the same name), is the PPO rollout's frame after
+//   the towers: it samples each env's actions as the scoring form does,
+//   scores their log-probability (ActionDist.logp), steps with the
+//   auto-reset, adds the frame to the episode statistics, records the
+//   trajectory's row at the loop's device-side frame index, and writes the
+//   next frame's observation.  Plain version:
+//   env_rollout.py:rollout_autoreset_sampled_plain.
 // - rollout_random_kernel replaces rollout_random (with _uniform_from_bits):
 //   actions and reset uniforms are drawn in the kernel from Philox4x32-10
 //   (philox.cuh) and only the state, a per-env reward sum and a per-env
@@ -97,6 +105,7 @@
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "torch_math.cuh"
 
 namespace {
 
@@ -570,12 +579,6 @@ constexpr int kNumDecodeParams = 16;
 static_assert(sizeof(DecodeParams) == kNumDecodeParams * sizeof(float),
               "DecodeParams must hold the float array");
 
-// torch.clamp(v, lo, hi) on the card: NaN passes through.
-__device__ __forceinline__ float clamp_like_torch(float v, float lo,
-                                                  float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
-
 // torch.argmax of two values: the first index on a tie, and NaN wins.
 __device__ __forceinline__ int argmax2(float a, float b) {
   return isnan(a) ? 0 : ((isnan(b) || b > a) ? 1 : 0);
@@ -693,6 +696,211 @@ rollout_autoreset_kernel(Leaves in, Leaves out,
                                  p);
                   }
                 });
+}
+
+// --- rollout_autoreset_kernel's decoded form ------------------------------
+//
+// The PPO rollout's frame after the towers (algo/ppo.py:RolloutLoop), T=1:
+// each env's actions are sampled as by the scoring form, their
+// log-probability is scored as ActionDist.logp scores it, the env steps
+// and re-draws an ended episode from the frame's five uniforms as the
+// streamed form does, EpisodeStats.update's per-env part runs, the frame
+// is recorded at the loop's frame index, and the next observation is
+// written.  Each operation mirrors the one torch's own CUDA kernel runs in
+// the composed frame, so that every output is bitwise the composed
+// frame's on the card; the plain version is
+// env_rollout.py:rollout_autoreset_sampled_plain.
+//
+// A population's P members' envs run in one launch, member-major: member m
+// owns envs [m * n_member, (m + 1) * n_member), and its draws come from its
+// own generator into its own blocks, the key uniforms (P, K, n_member, 2)
+// and the reset uniforms (P, 5, n_member); the record's reset uniforms keep
+// the composed frame's (5, P * n_member) layout.  A solo run is P = 1.
+//
+// What bounds it: the launch.  An env moves 423 B (K = 4: the state read
+// and written, the towers' outputs, the draws, the observation and the
+// live episode read; the record's row, the episode, six statistics terms
+// and the next observation written), 3.5 MB at the 8,192 envs of a
+// training frame, about 1 us at HBM's rate, against a launch of a few us.
+// What the design does about it: the frame after the towers is this one
+// launch in place of about 130 small kernels, every load is issued before
+// the move table's barrier, and the statistics' sums stay torch reductions
+// over the per-env terms, which keeps their bits.
+
+// The constants of the yaw's log-probability beyond DecodeParams', each the
+// float32 torch's kernel applies (env_rollout.py:_logp_params).
+struct LogpParams {
+  float squash_scale;  // SQUASH_SCALE
+  float half_log_2pi;  // 0.5 * log(2 pi)
+  float log_span;      // log(high - low)
+  float inv_yaw_span;  // 1 / float(high - low), in float
+};
+constexpr int kNumLogpParams = 4;
+static_assert(sizeof(LogpParams) == kNumLogpParams * sizeof(float),
+              "LogpParams must hold the float array");
+
+// What the decoded form reads and writes besides the state, in the
+// wrapper's order.
+struct RolloutFrame {
+  const float* logits;          // (N, 2K + 2) the policy tower's output
+  const float* value;           // (N,) the value tower's output
+  const float* uniforms;        // (P, K, n_member, 2) Gumbel uniforms
+  const float* normals;         // (N,) yaw normals
+  const float* reset_uniforms;  // (P, 5, n_member)
+  float* obs;                   // (N, 6) this frame's, then the next one's
+  const int64_t* index;         // the frame's row of the record
+  float* ep_return;             // (N,) the live episode's return
+  int32_t* ep_len;              // (N,) and length
+  // EpisodeStats.update's per-env terms, whose sums (and max) it adds to
+  // its finished-episode scalars, in their field order.
+  float* finished;              // (N,) done
+  float* ret_sum;               // (N,) the ended episode's return, or 0
+  float* ret_max;               // (N,) the ended episode's return, or -inf
+  float* len_sum;               // (N,) done * length
+  float* zs_finished;           // (N,) done * zero_start
+  float* zs_ret_sum;            // (N,) done * zero_start * return
+};
+constexpr int kNumRolloutFrame = 15;
+static_assert(sizeof(RolloutFrame) == kNumRolloutFrame * sizeof(void*),
+              "RolloutFrame must hold the pointer array");
+
+// The (T, ...) trajectory (ppo.Trajectory's fields, in order).
+struct Record {
+  float* obs;             // (T, N, 6)
+  int32_t* key_actions;   // (T, K, N)
+  float* yaw_actions;     // (T, N)
+  float* logits;          // (T, N, 2K + 2)
+  float* logp;            // (T, N)
+  float* value;           // (T, N)
+  float* reward;          // (T, N)
+  uint8_t* done;          // (T, N)
+  float* reset_uniforms;  // (T, 5, N)
+};
+constexpr int kNumRecord = 9;
+static_assert(sizeof(Record) == kNumRecord * sizeof(void*),
+              "Record must hold the pointer array");
+
+// ActionDist.logp of the sampled actions: per key the gathered term of its
+// two-value log_softmax, summed from 0 (Python's sum), then the squashed
+// Gaussian's log-probability, normal_logpdf(u, mean, std) -
+// log_squash_grad(u) with u = SQUASH_SCALE * ndtri((yaw - low) / (high -
+// low)).
+template <int K>
+__device__ __forceinline__ float action_logp(const float (&x)[2 * K + 2],
+                                             const Actions<K>& a,
+                                             const DecodeParams& d,
+                                             const LogpParams& q) {
+  float logp = 0.0f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float o0, o1;
+    log_softmax2(x[2 * j], x[2 * j + 1], o0, o1);
+    logp = logp + (a.keys[j] == 0 ? o0 : o1);
+  }
+  const float mean = clamp_like_torch(x[2 * K], d.mean_lo, d.mean_hi);
+  const float stdv =
+      expf(clamp_like_torch(x[2 * K + 1], d.log_std_lo, d.log_std_hi));
+  const float u =
+      ndtri_like_torch((a.yaw - d.yaw_low) * q.inv_yaw_span) * q.squash_scale;
+  const float dev = (u - mean) / stdv;
+  const float y_logp = (-logf(stdv) - q.half_log_2pi) - 0.5f * (dev * dev);
+  const float dev0 = (u - 0.0f) / q.squash_scale;
+  const float squash_grad =
+      ((-logf(q.squash_scale) - q.half_log_2pi) - 0.5f * (dev0 * dev0)) +
+      q.log_span;
+  return logp + (y_logp - squash_grad);
+}
+
+// One frame of the PPO rollout (T=1), the state written over itself: the
+// loads are issued before the move table's fill, as in run_frames.  An
+// index outside the record's T rows records nothing.
+template <int K, Decode kDecode>
+__global__ void __launch_bounds__(kThreads)
+rollout_autoreset_kernel(Leaves s, RolloutFrame f, Record r, int n,
+                         int n_member, int t_rows, Params p, DecodeParams d,
+                         LogpParams q) {
+  static_assert(kDecode == Decode::kSample, "the PPO rollout samples");
+  constexpr int L = 2 * K + 2;
+  __shared__ float2 moves[kMoveTable];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  const int m = live ? i / n_member : 0;
+  const int local = i - m * n_member;
+  Env e;
+  float logits[L], obs[6], ru[5];
+  float2 u[K];
+  float normal = 0.0f, value = 0.0f, ep_ret = 0.0f;
+  int ep_len = 0;
+  long long t = -1;
+  if (live) {
+    e = load_env<K>(s, i, n);
+#pragma unroll
+    for (int j = 0; j < L; ++j) logits[j] = f.logits[(size_t)i * L + j];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      u[j] = reinterpret_cast<const float2*>(
+          f.uniforms)[((size_t)m * K + j) * n_member + local];
+    }
+    normal = f.normals[i];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      ru[j] = f.reset_uniforms[((size_t)m * 5 + j) * n_member + local];
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) obs[j] = f.obs[(size_t)i * 6 + j];
+    value = f.value[i];
+    ep_ret = f.ep_return[i];
+    ep_len = f.ep_len[i];
+    t = *f.index;
+  }
+  fill_move_table(moves, p);
+  if (!live) return;
+  const Actions<K> a = decode_actions<K, kDecode>(logits, u, normal, d);
+  const float logp = action_logp<K>(logits, a, d, q);
+  const bool zero_start = e.zero_start;  // the episode's, before a reset
+  bool done;
+  const float reward =
+      latches_are_bits<K>(e)
+          ? env_step<K, false>(e, a.keys, a.yaw, moves, p, done)
+          : env_step<K, true>(e, a.keys, a.yaw, moves, p, done);
+  if (done) reset_env<K>(e, ru[0], ru[1], ru[2], ru[3], ru[4], p);
+  store_env<K>(s, e, i, n);
+
+  // EpisodeStats.update's per-env part.
+  const float ret = ep_ret + reward;
+  const int len = ep_len + 1;
+  const float df = done ? 1.0f : 0.0f;
+  const float zs = df * (zero_start ? 1.0f : 0.0f);
+  f.ep_return[i] = done ? 0.0f : ret;
+  f.ep_len[i] = done ? 0 : len;
+  f.finished[i] = df;
+  f.ret_sum[i] = done ? ret : 0.0f;
+  f.ret_max[i] = done ? ret : -INFINITY;
+  f.len_sum[i] = df * (float)len;
+  f.zs_finished[i] = zs;
+  f.zs_ret_sum[i] = zs * ret;
+
+  if (t >= 0 && t < t_rows) {
+    const size_t row = (size_t)t * n + i;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) r.obs[row * 6 + j] = obs[j];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      r.key_actions[((size_t)t * K + j) * n + i] = a.keys[j];
+    }
+    r.yaw_actions[row] = a.yaw;
+#pragma unroll
+    for (int j = 0; j < L; ++j) r.logits[row * L + j] = logits[j];
+    r.logp[row] = logp;
+    r.value[row] = value;
+    r.reward[row] = reward;
+    r.done[row] = done;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      r.reset_uniforms[((size_t)t * 5 + j) * n + i] = ru[j];
+    }
+  }
+  write_obs<K>(f.obs, e, d, i);
 }
 
 // The draw layout, under key (seed, 0).  Env i's frames 3m, 3m+1 and 3m+2
@@ -862,6 +1070,36 @@ extern "C" int q1_rollout_actions_sampled(
              : (sample ? rollout_actions_kernel<4, Decode::kSample>
                        : rollout_actions_kernel<4, Decode::kMode>);
   kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(s, f, n, p, d);
+  return (int)cudaGetLastError();
+}
+
+// rollout_autoreset_kernel's decoded form: one PPO rollout frame at T=1,
+// the state written over itself.  `state` is a host array of the 11 leaf
+// pointers (Leaves order), `frame` of the 15 of RolloutFrame and `record`
+// of the 9 of Record; n envs of `members` members' n / members each; the
+// record holds t_rows frames.  `fparams` are the 21 floats of Params,
+// `dparams` the 16 of DecodeParams and `lparams` the 4 of LogpParams.
+extern "C" int q1_rollout_autoreset_sampled(
+    void* const* state, void* const* frame, void* const* record, int n,
+    int members, int t_rows, int k, const float* fparams,
+    const float* dparams, const float* lparams, int discrete_yaw_steps,
+    int flags, void* stream) {
+  if (bad_shape(n, 1, k) || members < 1 || n % members != 0 || t_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  RolloutFrame f;
+  Record r;
+  std::memcpy(&f, frame, sizeof(f));
+  std::memcpy(&r, record, sizeof(r));
+  DecodeParams d;
+  std::memcpy(&d, dparams, sizeof(d));
+  LogpParams q;
+  std::memcpy(&q, lparams, sizeof(q));
+  const Params p = params_from(fparams, discrete_yaw_steps, flags);
+  auto kernel = k == 3 ? rollout_autoreset_kernel<3, Decode::kSample>
+                       : rollout_autoreset_kernel<4, Decode::kSample>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      leaves_from(state), f, r, n, n / members, t_rows, p, d, q);
   return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,14 @@ reset:
 - :func:`rollout_actions_autoreset` adds the auto-reset from streamed
   uniforms.  It replaces ``rollout_actions_autoreset``; plain version
   :func:`rollout_actions_autoreset_plain`, a loop of
-  ``env.core.step_autoreset(reset_uniforms=ru[t])``.  The PPO rollout runs
-  it once per frame (T=1).
+  ``env.core.step_autoreset(reset_uniforms=ru[t])``.  The PPO rollout's
+  composed frame runs it once per frame (T=1).  Its decoded form,
+  :func:`rollout_autoreset_sampled`, is the PPO rollout's frame after the
+  towers at T=1: it samples each env's actions, scores their
+  log-probability, steps with the auto-reset, adds the frame to the
+  episode statistics, records the trajectory's row and writes the next
+  observation; plain version :func:`rollout_autoreset_sampled_plain`.
+  The PPO rollout runs it on a card (``algo/ppo.py:RolloutLoop``).
 - :func:`rollout_random` draws its actions and reset uniforms in the kernel
   from Philox4x32-10 and returns only the state, a per-env reward sum and
   the done count.  It replaces ``rollout_random``; plain version
@@ -56,11 +62,14 @@ from ..env.config import (INITIAL_STATE, INITIAL_YAW_ZERO, Config,
                           get_obs_scale)
 from ..models.distributions import (MAX_ABS_MEAN, MAX_LOG_NN_OUTPUT,
                                     MIN_LOG_NN_OUTPUT, SMALL_NUMBER,
-                                    SQUASH_SCALE)
+                                    SQUASH_SCALE, Categorical,
+                                    GaussianSquashedGaussian)
 
 __all__ = ("rollout_actions", "rollout_actions_plain",
            "rollout_actions_sampled", "rollout_actions_sampled_plain",
            "rollout_actions_autoreset", "rollout_actions_autoreset_plain",
+           "rollout_autoreset_sampled", "rollout_autoreset_sampled_plain",
+           "RECORD_FIELDS", "EPISODE_TERMS", "record_shapes", "record_dtype",
            "rollout_random", "rollout_random_plain", "random_frame_inputs",
            "FRAMES_PER_DRAW", "philox4x32_10", "uniform_from_bits",
            "uniform_from_low_bytes", "launch_shape", "build", "build_all",
@@ -187,6 +196,9 @@ def _library():
     lib.q1_rollout_actions_sampled.argtypes = ([ptr] * 7 + [i32] * 2
                                                + [ptr] * 2 + [i32] * 2
                                                + [ptr])
+    lib.q1_rollout_autoreset_sampled.argtypes = ([ptr] * 3 + [i32] * 4
+                                                 + [ptr] * 3 + [i32] * 2
+                                                 + [ptr])
     lib.q1_rollout_random.argtypes = ([ptr] * 4 + [i32] * 3 + [ptr]
                                       + [i32] * 2 + [ctypes.c_uint, ptr])
     lib.q1_philox.argtypes = [ptr, ptr, i32, ctypes.c_uint, ctypes.c_uint,
@@ -194,7 +206,8 @@ def _library():
     lib.q1_launch_shape.argtypes = [i32, i32, i32, ptr]
     lib.q1_frames_per_draw.argtypes = []
     for fn in (lib.q1_rollout_actions, lib.q1_rollout_actions_autoreset,
-               lib.q1_rollout_actions_sampled, lib.q1_rollout_random,
+               lib.q1_rollout_actions_sampled,
+               lib.q1_rollout_autoreset_sampled, lib.q1_rollout_random,
                lib.q1_philox, lib.q1_launch_shape, lib.q1_frames_per_draw):
         fn.restype = i32
     if lib.q1_frames_per_draw() != FRAMES_PER_DRAW:
@@ -440,20 +453,13 @@ def _decode_params(cfg: Config):
     return (ctypes.c_float * len(values))(*values)
 
 
-def rollout_actions_sampled_plain(cfg: Config, state: env_core.EnvState,
-                                  logits, uniforms, normals, ret, alive):
-    """The plain version of the decoded form: the scoring loop's composed
-    frame after the policy tower, as torch calls in the kernel's order.
-
-    Each key is the Gumbel-max of its two logits (``Categorical.sample``)
-    or their argmax with ``uniforms`` None (``Categorical.mode``); the yaw
-    is the squashed Gaussian's draw from ``normals`` or its mode
-    (``GaussianSquashedGaussian``); one ``core.step``; the return and alive
-    updates of the scoring loop; then ``core.compute_obs`` of the new
-    state.  Any device: torch's own kernels give each device's bits.
-
-    Returns (EnvState, ret, alive, obs (N, 6)).
-    """
+def _decode_plain(cfg: Config, logits, uniforms, normals):
+    """The decoded forms' actions from the tower's logits, as torch calls
+    in the kernels' order: each key the Gumbel-max of its two logits on
+    ``uniforms`` (K, N, 2) (``Categorical.sample``), or their argmax with
+    ``uniforms`` None (``Categorical.mode``); the yaw the squashed
+    Gaussian's draw from ``normals`` (N,), or its mode
+    (``GaussianSquashedGaussian``).  Returns (keys (K, N) int32, yaw)."""
     k = cfg.num_keys
     keys = []
     for j in range(k):
@@ -471,6 +477,24 @@ def rollout_actions_sampled_plain(cfg: Config, state: env_core.EnvState,
     squashed = torch.special.ndtr(raw / SQUASH_SCALE)
     yaw = (torch.clamp(squashed, SMALL_NUMBER, 1.0 - SMALL_NUMBER)
            * (high - low) + low)
+    return key_actions, yaw
+
+
+def rollout_actions_sampled_plain(cfg: Config, state: env_core.EnvState,
+                                  logits, uniforms, normals, ret, alive):
+    """The plain version of the decoded form: the scoring loop's composed
+    frame after the policy tower, as torch calls in the kernel's order.
+
+    Each key is the Gumbel-max of its two logits (``Categorical.sample``)
+    or their argmax with ``uniforms`` None (``Categorical.mode``); the yaw
+    is the squashed Gaussian's draw from ``normals`` or its mode
+    (``GaussianSquashedGaussian``); one ``core.step``; the return and alive
+    updates of the scoring loop; then ``core.compute_obs`` of the new
+    state.  Any device: torch's own kernels give each device's bits.
+
+    Returns (EnvState, ret, alive, obs (N, 6)).
+    """
+    key_actions, yaw = _decode_plain(cfg, logits, uniforms, normals)
     state, rewards, dones = rollout_actions_plain(cfg, state,
                                                   key_actions[None], yaw[None])
     ret = ret + rewards[0] * alive
@@ -610,6 +634,185 @@ def rollout_actions_autoreset(cfg: Config, state: env_core.EnvState,
 
 
 rollout_actions_autoreset.launches = 0
+
+
+# --- rollout_actions_autoreset, decoded form -------------------------------
+
+# What the decoded form of rollout_actions_autoreset records of a frame:
+# ppo.Trajectory's fields, in its order, with their dtypes.
+RECORD_FIELDS = ("obs", "key_actions", "yaw_actions", "logits", "logp",
+                 "value", "reward", "done", "reset_uniforms")
+_RECORD_DTYPES = {"key_actions": torch.int32, "done": torch.bool}
+# EpisodeStats' per-env terms of a frame, in the order of the scalars whose
+# sums (and max, for ret_max) they feed.
+EPISODE_TERMS = ("finished", "ret_sum", "ret_max", "len_sum", "zs_finished",
+                 "zs_ret_sum")
+
+
+def record_shapes(cfg: Config, n: int) -> dict:
+    """The shape of one frame's row of each :data:`RECORD_FIELDS` for n
+    envs (a record holds T of them)."""
+    k = cfg.num_keys
+    return {"obs": (n, 6), "key_actions": (k, n), "yaw_actions": (n,),
+            "logits": (n, cfg.num_action_logits), "logp": (n,),
+            "value": (n,), "reward": (n,), "done": (n,),
+            "reset_uniforms": (5, n)}
+
+
+def record_dtype(field: str) -> torch.dtype:
+    return _RECORD_DTYPES.get(field, torch.float32)
+
+
+def _logp_params(cfg: Config):
+    """The 4 floats of the kernel's ``LogpParams``, in its order: each the
+    float32 that torch's own kernel applies in ``ActionDist.logp`` on the
+    card (a division by a Python scalar is a product by its float
+    reciprocal there)."""
+    span = 2.0 * cfg.action_range
+    values = (SQUASH_SCALE, 0.5 * math.log(2.0 * math.pi), math.log(span),
+              float(np.float32(1.0) / np.float32(span)))
+    return (ctypes.c_float * len(values))(*values)
+
+
+def rollout_autoreset_sampled_plain(cfg: Config, state: env_core.EnvState,
+                                    logits, value, uniforms, normals,
+                                    reset_uniforms, obs, ep_return, ep_len):
+    """The plain version of the decoded form: the PPO rollout's composed
+    frame after the towers (``algo/ppo.py:RolloutLoop``), as torch calls.
+
+    The members' draws (``uniforms`` (P, K, N / P, 2), ``reset_uniforms``
+    (P, 5, N / P)) are joined member-major, as the composed frame draws
+    them; the actions are sampled as :func:`rollout_actions_sampled_plain`
+    samples them; their log-probability is ``ActionDist.logp``'s (each
+    key's ``Categorical.logp``, summed from 0, plus the squashed
+    Gaussian's); one ``core.step_autoreset``; ``EpisodeStats.update``'s
+    per-env part; then ``core.compute_obs`` of the new state.  Any device:
+    torch's own kernels give each device's bits.
+
+    Returns (EnvState, the frame's record row (obs, key actions, yaw,
+    logits, logp, value, reward, done, reset uniforms (5, N)), ep_return,
+    ep_len, the per-env terms of :data:`EPISODE_TERMS`, the next obs).
+    """
+    k, n = cfg.num_keys, state.num_envs
+    key_uniforms = uniforms.transpose(0, 1).reshape(k, n, 2)
+    ru = reset_uniforms.transpose(0, 1).reshape(5, n)
+    key_actions, yaw = _decode_plain(cfg, logits, key_uniforms, normals)
+    logp = sum(Categorical(logits[:, 2 * j:2 * j + 2]).logp(key_actions[j])
+               for j in range(k))
+    logp = logp + GaussianSquashedGaussian(
+        logits[:, 2 * k], logits[:, 2 * k + 1], low=-cfg.action_range,
+        high=cfg.action_range).logp(yaw)
+    zero_start = state.zero_start
+    state, rewards, dones = rollout_actions_autoreset_plain(
+        cfg, state, key_actions[None], yaw[None], ru[None])
+    reward, done = rewards[0], dones[0]
+    ret = ep_return + reward
+    length = ep_len + 1
+    d = done.to(torch.float32)
+    zs = d * zero_start.to(torch.float32)
+    terms = (d, torch.where(done, ret, 0.0),
+             torch.where(done, ret, -torch.inf), d * length, zs, zs * ret)
+    next_obs = env_core.compute_obs(cfg, state.player, state.yaw,
+                                    state.time_remaining)
+    row = (obs, key_actions, yaw, logits, logp, value, reward, done, ru)
+    return (state, row, torch.where(done, 0.0, ret),
+            torch.where(done, 0, length), terms, next_obs)
+
+
+def rollout_autoreset_sampled(cfg: Config, state: env_core.EnvState, logits,
+                              value, uniforms, normals, reset_uniforms, obs,
+                              ep_return, ep_len, terms, record, index):
+    """One PPO rollout frame after the towers, written in place: the
+    decoded form of ``rollout_autoreset_kernel`` at T=1.
+
+    Args:
+        logits: (N, 2K + 2) float32 and value: (N,) float32, the towers'
+            outputs, for a config with a continuous yaw
+            (``discrete_yaw_steps == -1``).
+        uniforms: (P, K, N / P, 2) float32, each member's key uniforms,
+            key by key, as ``Categorical.sample`` draws them;
+        normals: (N,) float32, the yaw's normal draws;
+        reset_uniforms: (P, 5, N / P) float32, each member's five reset
+            uniforms; P = 1 for a solo run.
+        obs: (N, 6) float32, this frame's observation, overwritten with the
+            next frame's.
+        ep_return: (N,) float32 and ep_len: (N,) int32, the live episodes,
+            updated in place.
+        terms: six (N,) float32 tensors, overwritten with the frame's
+            per-env terms of :data:`EPISODE_TERMS`.
+        record: the (T, ...) buffers of :data:`RECORD_FIELDS`
+            (:func:`record_shapes`, :func:`record_dtype`), whose row
+            ``index`` is written;
+        index: (1,) int64, the frame's row (an index outside the T rows
+            records nothing on the card).
+
+    ``state`` is advanced in place.  Returns (state, record, ep_return,
+    ep_len, terms, obs), equal to :func:`rollout_autoreset_sampled_plain`'s
+    written in place.
+
+    CUDA tensors go through the kernel, and
+    ``rollout_actions_autoreset.launches`` counts its launch (a form of
+    that kernel), as does ``rollout_autoreset_sampled.launches`` alone;
+    CPU tensors go through the plain version.
+    """
+    n, k = state.num_envs, cfg.num_keys
+    if not cfg.allow_yaw or cfg.discrete_yaw_steps != -1:
+        raise ValueError("the decoded form takes a continuous yaw")
+    if uniforms.dim() != 4 or uniforms.shape[0] < 1 or n % uniforms.shape[0]:
+        raise ValueError(f"uniforms must be (P, {k}, {n} / P, 2), got "
+                         f"{tuple(uniforms.shape)}")
+    if len(terms) != len(EPISODE_TERMS) or len(record) != len(RECORD_FIELDS):
+        raise ValueError(f"expected {len(EPISODE_TERMS)} terms and "
+                         f"{len(RECORD_FIELDS)} record buffers, got "
+                         f"{len(terms)} and {len(record)}")
+    members = uniforms.shape[0]
+    per = n // members
+    t = record[0].shape[0] if record[0].dim() else 0
+    if t < 1:
+        raise ValueError("the record needs at least one row")
+    f32 = torch.float32
+    device = logits.device
+    extra = [("logits", logits, f32, (n, 2 * k + 2)),
+             ("value", value, f32, (n,)),
+             ("uniforms", uniforms, f32, (members, k, per, 2)),
+             ("normals", normals, f32, (n,)),
+             ("reset_uniforms", reset_uniforms, f32, (members, 5, per)),
+             ("obs", obs, f32, (n, 6)), ("index", index, torch.int64, (1,)),
+             ("ep_return", ep_return, f32, (n,)),
+             ("ep_len", ep_len, torch.int32, (n,))]
+    extra += [(name, x, f32, (n,)) for name, x in zip(EPISODE_TERMS, terms)]
+    extra += [(f"record {name}", x, record_dtype(name), (t,) + shape)
+              for (name, shape), x in zip(record_shapes(cfg, n).items(),
+                                          record)]
+    _check_state(cfg, state, device, extra)
+    if device.type == "cpu":
+        new_state, row, new_return, new_len, new_terms, next_obs = (
+            rollout_autoreset_sampled_plain(
+                cfg, state, logits, value, uniforms, normals, reset_uniforms,
+                obs, ep_return, ep_len))
+        state.copy_(new_state)
+        for buf, x in zip(record, row):
+            buf.index_copy_(0, index, x.unsqueeze(0))
+        _write_out((new_return, new_len, *new_terms, next_obs),
+                   (ep_return, ep_len, *terms, obs))
+        return state, record, ep_return, ep_len, terms, obs
+    _cuda_device(device, "rollout_autoreset_sampled")
+
+    frame = (logits, value, uniforms, normals, reset_uniforms, obs, index,
+             ep_return, ep_len, *terms)
+    with torch.cuda.device(device):
+        err = _library().q1_rollout_autoreset_sampled(
+            _pointers(state.leaves()), _pointers(frame), _pointers(record),
+            n, members, t, k, _float_params(cfg), _decode_params(cfg),
+            _logp_params(cfg), cfg.discrete_yaw_steps, _flags(cfg),
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err)
+    rollout_actions_autoreset.launches += 1
+    rollout_autoreset_sampled.launches += 1
+    return state, record, ep_return, ep_len, terms, obs
+
+
+rollout_autoreset_sampled.launches = 0
 
 
 # --- Philox and rollout_random --------------------------------------------

@@ -29,8 +29,9 @@ from q1physrl_torch.ops import env_rollout
 from q1physrl_torch.utils import profiling
 
 from _torch_common import run_ranks
-from chip_smoke import (any_latches, probe_configs, replay_eval_sim,
-                        rollout_inputs, sampled_frame_inputs)
+from chip_smoke import (any_latches, autoreset_frame_inputs, probe_configs,
+                        replay_eval_sim, rollout_inputs,
+                        sampled_frame_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -658,6 +659,111 @@ def test_a_graphed_loop_records_its_replays(cuda):
     assert all(e.end_ns > e.start_ns for e in replays)
     assert not [e.name for e in prof.events()
                 if e.name.startswith("cuda_graph.")]
+
+
+# --- the PPO rollout's fused frame ------------------------------------------
+
+
+@pytest.mark.parametrize("k,members,n,latches", [
+    (4, 1, 8192, False), (4, 4, 1600, False), (3, 1, 7, False),
+    (4, 2, 1000, True), (4, 1, 1, False)])
+def test_decoded_autoreset_kernel_equals_plain_version(cuda, k, members, n,
+                                                       latches):
+    """The decoded form of rollout_autoreset_kernel against its plain
+    version, to the bit, at params_tpu's 8,192 envs, the sweep's 4 x 400,
+    ragged blocks and key latches of any value: the state, every record
+    field at the frame's row (no other row written), the live episodes,
+    the statistics' terms and the next observation; one launch, counted
+    as #2's and as the decoded form's."""
+    cfg = dataclasses.replace(RUN4, zero_start_prob=0.3)
+    if k == 3:
+        cfg = dataclasses.replace(cfg, allow_jump=False)
+    rows = 3
+    state, inputs, outputs = autoreset_frame_inputs(cfg, n, members, rows,
+                                                    10 * n + k, cuda)
+    if latches:
+        state = any_latches(state, 2)
+    want = env_rollout.rollout_autoreset_sampled_plain(
+        cfg, state.clone(), **{x: v.clone() for x, v in inputs.items()})
+    before = (env_rollout.rollout_actions_autoreset.launches,
+              env_rollout.rollout_autoreset_sampled.launches)
+    got = env_rollout.rollout_autoreset_sampled(cfg, state, **inputs,
+                                                **outputs)
+    assert (env_rollout.rollout_actions_autoreset.launches,
+            env_rollout.rollout_autoreset_sampled.launches) == (
+                before[0] + 1, before[1] + 1)
+    _assert_states_equal(got[0], want[0])
+    row = rows - 2
+    for name, buf, x in zip(env_rollout.RECORD_FIELDS, outputs["record"],
+                            want[1]):
+        assert torch.equal(_bits(buf[row]) if x.is_floating_point()
+                           else buf[row], _bits(x) if x.is_floating_point()
+                           else x), name
+        assert not buf[row + 1].any() and not buf[:row].any(), name
+    for x, y in zip((*got[2:4], *got[4], got[5]),
+                    (*want[2:4], *want[4], want[5])):
+        assert torch.equal(_bits(x) if x.is_floating_point() else x,
+                           _bits(y) if y.is_floating_point() else y)
+    if n >= 1000:
+        assert bool(want[1][7].any()) and not bool(want[1][7].all())
+
+
+@pytest.mark.parametrize("members", [1, 4])
+def test_fused_rollout_equals_the_composed_rollout(cuda, members,
+                                                   monkeypatch):
+    """A whole rollout through the fused frame, graphed, against the
+    composed frame (forced), eager, to the bit, at params_tpu's 8,192 envs
+    (K=4) and the sweep's 4 x 400, over 24 frames in which episodes end:
+    trajectory, final state, statistics, bootstrap value and generators;
+    ``ppo.fused_frames`` grows by the frames run, and one launch of #2's
+    decoded form a frame."""
+    from q1physrl_torch.algo import population
+
+    cfg = dataclasses.replace(RUN4, num_envs=None, zero_start_prob=0.3)
+    per = 8192 if members == 1 else 400
+    pc = PPOConfig(num_envs=per, rollout_length=24, num_sgd_iter=1,
+                   sgd_minibatch_size=per)
+    frames = lambda: (profiling.counter("ppo.fused_frames"),
+                      profiling.counter("ppo.composed_frames"))
+    outs = {}
+    for fused, driver in ((False, "eager"), (True, "graph")):
+        if not fused:
+            monkeypatch.setattr(ppo, "_takes_fused_rollout",
+                                lambda *args: False)
+        else:
+            monkeypatch.undo()
+        if members == 1:
+            ts = ppo.init_train_state(9, cfg, pc, cuda)
+            state, stats, gens = ts.env_state, ts.stats, (ts.generator,)
+            run = lambda: ppo.rollout(cfg, pc, ts.policy, state, stats,
+                                      ts.generator, driver=driver)
+        else:
+            ps = population.init_population((5555, 6666, 7777, 8888), cfg,
+                                            pc, cuda)
+            state, stats, gens = ps.env_state, ps.stats, ps.generators
+            run = lambda: population.rollout(cfg, pc, ps.policy, state,
+                                             stats, ps.generators,
+                                             driver=driver)
+        state.time_remaining = state.time_remaining * 0.1
+        counted = frames()
+        launches = env_rollout.rollout_autoreset_sampled.launches
+        out = run()
+        fused_run, composed_run = (a - b for a, b in zip(frames(), counted))
+        assert (fused_run, composed_run) == ((24, 0) if fused else (0, 24))
+        assert (env_rollout.rollout_autoreset_sampled.launches - launches
+                == (24 if fused else 0))
+        outs[fused] = out + ([g.get_state() for g in gens],)
+    (s0, st0, tr0, b0, g0), (s1, st1, tr1, b1, g1) = outs[False], outs[True]
+    assert bool(tr0.done.any())
+    _assert_states_equal(s1, s0)
+    for f in dataclasses.fields(st0):
+        assert torch.equal(getattr(st1, f.name), getattr(st0, f.name)), f
+    for name in tr0._fields:
+        x, y = getattr(tr1, name), getattr(tr0, name)
+        assert torch.equal(_bits(x) if x.is_floating_point() else x,
+                           _bits(y) if y.is_floating_point() else y), name
+    assert torch.equal(b1, b0)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g0))
 
 
 # --- a population (algo/population.py) ---------------------------------------
